@@ -1,0 +1,216 @@
+"""Shared kernel substrate: registry, device dispatch, build, gradients.
+
+* **registry** — :class:`KernelSpec` maps a family name to its CUDA
+  wrapper and its plain torch version.  Each spec also carries the
+  family's launch counts: ``launches`` rises by one where the wrapper
+  launches its kernel, ``plain_calls`` where a CPU tensor takes the
+  plain version through :func:`dispatch`.
+* **device dispatch** — :func:`dispatch`: a CUDA tensor launches the
+  kernel, a CPU tensor takes the plain version.  There is no fallback: a
+  CUDA tensor whose kernel fails to build or launch raises.
+* **build** — :func:`load_library` compiles a family's ``csrc/*.cu``
+  with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
+  interface, at first use, into ``build/`` at the repository root, and
+  loads it with ``ctypes``.
+* **gradients** — :func:`ste`: quantized forward, exact float backward.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Any, Callable, Dict, Sequence, Tuple
+
+import torch
+
+# ---------------------------------------------------------------------------
+# Kernel registry
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class KernelSpec:
+    """One kernel family, as the substrate sees it.
+
+    kernel: the CUDA wrapper (raw layout; CUDA tensors only).
+    plain:  the plain torch version of the same function, from the
+            family's ``ref.py`` — bit-exact for the fixed-point families.
+    replaces: ``file:line`` of the TPU kernel in the JAX package.
+    source: the CUDA source, relative to the repository root.
+    launches / plain_calls: counts since the last :func:`reset_counts`.
+    """
+    name: str
+    kernel: Callable[..., Any]
+    plain: Callable[..., Any]
+    replaces: str = ""
+    source: str = ""
+    launches: int = 0
+    plain_calls: int = 0
+
+
+_REGISTRY: Dict[str, KernelSpec] = {}
+
+
+def register(spec: KernelSpec) -> KernelSpec:
+    """Idempotent by name (module re-imports re-register the same spec)."""
+    _REGISTRY[spec.name] = spec
+    return spec
+
+
+def get_kernel(name: str) -> KernelSpec:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise KeyError(
+            f"no kernel {name!r} registered; known: {registered_kernels()} "
+            "(import repro_torch.kernels to populate the registry)") from None
+
+
+def registered_kernels() -> Tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+def reset_counts() -> None:
+    for spec in _REGISTRY.values():
+        spec.launches = 0
+        spec.plain_calls = 0
+
+
+# ---------------------------------------------------------------------------
+# Device dispatch
+# ---------------------------------------------------------------------------
+
+
+def dispatch(spec: KernelSpec, *tensors: torch.Tensor) -> Callable[..., Any]:
+    """The callable for these inputs: ``spec.kernel`` when they lie on a
+    CUDA device, ``spec.plain`` when they lie on the CPU.  Mixed or other
+    devices raise."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cuda"}:
+        return spec.kernel
+    if kinds == {"cpu"}:
+        spec.plain_calls += 1
+        return spec.plain
+    raise ValueError(f"{spec.name}: inputs must all lie on one CUDA device or "
+                     f"all on the CPU, got {sorted(kinds)}")
+
+
+# ---------------------------------------------------------------------------
+# Build: nvcc -> shared library with a C interface -> ctypes
+# ---------------------------------------------------------------------------
+
+REPO_ROOT = Path(__file__).resolve().parents[3]
+BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+@dataclasses.dataclass
+class BuiltLibrary:
+    lib: ctypes.CDLL
+    path: Path
+    seconds: float          # 0.0 when an earlier build was reused
+    log: str                # nvcc's output (ptxas register/smem report)
+
+
+_LIBS: Dict[str, BuiltLibrary] = {}
+_LIBS_LOCK = threading.Lock()
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin): the CUDA "
+                       "kernels are built from source at first use")
+
+
+def load_library(name: str, sources: Sequence[Path],
+                 signatures: Dict[str, Tuple[Any, list]]) -> BuiltLibrary:
+    """Build (once per source content) and load ``lib<name>.so``.
+
+    ``signatures`` maps each C entry point to its ``(restype, argtypes)``;
+    they are set once, when the library is loaded."""
+    with _LIBS_LOCK:
+        if name in _LIBS:
+            return _LIBS[name]
+        digest = hashlib.sha256()
+        for src in sources:
+            digest.update(Path(src).read_bytes())
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        path = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+        seconds, log = 0.0, ""
+        if not path.exists():
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+            t0 = time.monotonic()
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            seconds = time.monotonic() - t0
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed building {name} "
+                                   f"({' '.join(cmd)}):\n{log}")
+            os.replace(tmp, path)
+        lib = ctypes.CDLL(str(path))
+        for fn, (restype, argtypes) in signatures.items():
+            getattr(lib, fn).restype = restype
+            getattr(lib, fn).argtypes = argtypes
+        built = BuiltLibrary(lib, path, seconds, log)
+        _LIBS[name] = built
+        return built
+
+
+def check_cuda(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise on a nonzero ``cudaError_t`` returned by a C entry point."""
+    if err != 0:
+        msg = lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def stream_ptr(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+# ---------------------------------------------------------------------------
+# Straight-through gradients
+# ---------------------------------------------------------------------------
+
+
+def ste(fwd: Callable[..., torch.Tensor],
+        grad: Callable[..., torch.Tensor]) -> Callable[..., torch.Tensor]:
+    """Quantized forward, exact float backward (straight-through).
+
+    ``fwd`` runs the (non-differentiable) kernel; the backward pass is the
+    exact VJP of ``grad`` at the primal inputs.  Static configuration must
+    already be bound into both callables; the result takes tensors only.
+    """
+
+    class _Ste(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, *args):
+            ctx.save_for_backward(*args)
+            return fwd(*args)
+
+        @staticmethod
+        def backward(ctx, g):
+            args = [a.detach().requires_grad_(need)
+                    for a, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+            with torch.enable_grad():
+                out = grad(*args)
+            needs = [a for a in args if a.requires_grad]
+            got = iter(torch.autograd.grad(out, needs, g) if needs else ())
+            return tuple(next(got) if a.requires_grad else None for a in args)
+
+    return _Ste.apply

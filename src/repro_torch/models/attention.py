@@ -1,0 +1,169 @@
+"""GQA attention: naive, chunked (online softmax) and single-token decode.
+
+Layouts follow the JAX reference: activations (B, S, H, dh), caches
+(B, S_max, Hkv, dh).  Only the dense, unquantized, unpaged cache is
+ported; the int8 and paged formats come with ROADMAP queue 1, items 11
+and 13.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, ExecutionPolicy
+from repro_torch.models import layers as L
+
+NEG_INF = -1e30
+FULL_WINDOW = 2 ** 30
+
+
+def _causal_window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window
+                        ) -> torch.Tensor:
+    """True = attend.  q_pos (Sq,), k_pos (Sk,)."""
+    d = q_pos[:, None] - k_pos[None, :]
+    return (d >= 0) & (d < window)
+
+
+def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    b, s, _ = x.shape
+    return x.reshape(b, s, n_heads, -1)
+
+
+class AttnParams(NamedTuple):
+    wq: torch.Tensor
+    wk: torch.Tensor
+    wv: torch.Tensor
+    wo: torch.Tensor
+    bq: Optional[torch.Tensor] = None
+    bk: Optional[torch.Tensor] = None
+    bv: Optional[torch.Tensor] = None
+
+
+def qkv(x: torch.Tensor, p: AttnParams, cfg: ArchConfig, pol: ExecutionPolicy,
+        positions: torch.Tensor
+        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    dh = cfg.head_dim_
+    q = _split_heads(L.dense(x, p.wq, pol, p.bq), cfg.n_heads)
+    k = _split_heads(L.dense(x, p.wk, pol, p.bk), cfg.n_kv_heads)
+    v = _split_heads(L.dense(x, p.wv, pol, p.bv), cfg.n_kv_heads)
+    if cfg.family != "ssm":
+        ang = L.rope_angles(positions, dh, cfg.rope_theta)
+        q = L.apply_rope(q, ang)
+        k = L.apply_rope(k, ang)
+    return q, k, v
+
+
+def naive_attention(q, k, v, cfg: ArchConfig, pol: ExecutionPolicy, q_pos,
+                    k_pos, window) -> torch.Tensor:
+    """Materialised-scores attention (small seq / reference)."""
+    b, sq, hq, dh = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, sq, hkv, hq // hkv, dh)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k) / math.sqrt(dh)
+    mask = _causal_window_mask(q_pos, k_pos, window)
+    scores = torch.where(mask[None, None, None], scores.to(torch.float32),
+                         NEG_INF)
+    probs = L.softmax(scores, pol).to(q.dtype)
+    ctx = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return ctx.reshape(b, sq, hq, dh)
+
+
+def chunked_attention(q, k, v, cfg: ArchConfig, pol: ExecutionPolicy, q_pos,
+                      k_pos, window, chunk: int) -> torch.Tensor:
+    """Online-softmax over KV chunks; O(S*chunk) live memory."""
+    b, sq, hq, dh = q.shape
+    sk = k.shape[1]
+    hkv = k.shape[2]
+    g = hq // hkv
+    chunk = min(chunk, sk)
+    if sk % chunk:
+        raise ValueError(f"key length {sk} is not a multiple of the "
+                         f"attention chunk {chunk}")
+    qg = q.reshape(b, sq, hkv, g, dh)
+    scale = 1.0 / math.sqrt(dh)
+    m = torch.full((b, hkv, g, sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, hkv, g, sq), dtype=torch.float32, device=q.device)
+    o = torch.zeros((b, hkv, g, sq, dh), dtype=torch.float32, device=q.device)
+    for c0 in range(0, sk, chunk):
+        k_i, v_i = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
+        s = torch.einsum("bskgd,btkd->bkgst", qg, k_i).to(torch.float32) * scale
+        mask = _causal_window_mask(q_pos, k_pos[c0:c0 + chunk], window)
+        s = torch.where(mask[None, None, None], s, NEG_INF)
+        m_i = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_i[..., None])
+        alpha = torch.exp(m - m_i)
+        l = l * alpha + p.sum(dim=-1)
+        o = o * alpha[..., None] + torch.einsum(
+            "bkgst,btkd->bkgsd", p.to(q.dtype), v_i).to(torch.float32)
+        m = m_i
+    o = o / torch.clamp(l[..., None], min=1e-30)
+    ctx = o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dh)
+    return ctx.to(q.dtype)
+
+
+def attention(q, k, v, cfg: ArchConfig, pol: ExecutionPolicy, q_pos, k_pos,
+              window=None) -> torch.Tensor:
+    window = FULL_WINDOW if window is None else window
+    impl = cfg.attn_impl
+    if impl == "auto":
+        impl = "chunked" if k.shape[1] > 2048 else "naive"
+    if impl == "chunked":
+        return chunked_attention(q, k, v, cfg, pol, q_pos, k_pos, window,
+                                 cfg.attn_chunk)
+    return naive_attention(q, k, v, cfg, pol, q_pos, k_pos, window)
+
+
+# ---------------------------------------------------------------------------
+# Decode (single-token) with a preallocated cache
+# ---------------------------------------------------------------------------
+
+def _attend_decode(q, keys, vals, pos: torch.Tensor, pol: ExecutionPolicy,
+                   window) -> torch.Tensor:
+    """Single-token attend over a (B, S, Hkv, dh) key/value view.
+
+    The cache is a ring: slot t holds the newest write whose position is
+    t mod S; the valid entries are the last min(pos + 1, S) writes.
+    ``pos`` is a scalar (every row at one position) or (B,) per row.
+    """
+    b, _, hq, dh = q.shape
+    s_max = keys.shape[1]
+    hkv = keys.shape[2]
+    qg = q.reshape(b, 1, hkv, hq // hkv, dh)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, keys) / math.sqrt(dh)
+    per_row = pos.dim() == 1
+    t = torch.arange(s_max, device=q.device)
+    p = pos[:, None] if per_row else pos
+    age = torch.remainder(p - t, s_max)                  # 0 = newest
+    valid = age < torch.clamp(p + 1, max=s_max)
+    mask = valid & (age < window)
+    mask = mask[:, None, None, None, :] if per_row else mask[None, None, None, None, :]
+    scores = torch.where(mask, scores.to(torch.float32), NEG_INF)
+    probs = L.softmax(scores, pol).to(q.dtype)
+    ctx = torch.einsum("bkgst,btkd->bskgd", probs, vals)
+    return ctx.reshape(b, 1, hq, dh)
+
+
+def decode_attention(q, k_new, v_new, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, pos: torch.Tensor,
+                     cfg: ArchConfig, pol: ExecutionPolicy, window
+                     ) -> torch.Tensor:
+    """q/k_new/v_new: (B, 1, H*, dh); cache: (B, S, Hkv, dh).
+
+    Writes the new K/V into the caches **in place** at ``pos mod S`` (the
+    JAX reference returns new arrays; the port updates its own state's
+    caches instead of copying them every step), then attends.  ``pos`` is
+    the tokens-seen counter: a scalar, or (B,) per serving slot.
+    """
+    slot = torch.remainder(pos, cache_k.shape[1])
+    if pos.dim() == 1:
+        rows = torch.arange(q.shape[0], device=q.device)
+        cache_k[rows, slot] = k_new[:, 0].to(cache_k.dtype)
+        cache_v[rows, slot] = v_new[:, 0].to(cache_v.dtype)
+    else:
+        cache_k[:, slot] = k_new[:, 0].to(cache_k.dtype)
+        cache_v[:, slot] = v_new[:, 0].to(cache_v.dtype)
+    return _attend_decode(q, cache_k.to(q.dtype), cache_v.to(q.dtype), pos,
+                          pol, window)

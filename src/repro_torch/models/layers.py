@@ -1,0 +1,112 @@
+"""Common model layers, routed through the ExecutionPolicy so the paper's
+CORDIC datapath is an execution mode of every architecture.
+
+Modes not ported yet raise ``NotImplementedError`` naming the ROADMAP
+item (queue 1) that ports them; none quietly runs something else.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ExecutionPolicy
+from repro_torch.kernels.cordic_mac.ops import cordic_matmul
+
+_QUANT_ITEM = ("ROADMAP queue 1, item 4 (core/quantization.py, W8A8 "
+               "quantized_dense)")
+_CORDIC_AF_ITEM = ("ROADMAP queue 1, item 4 (core/activations.py, DA-VINCI "
+                   "CORDIC AFs)")
+
+
+def dense(x: torch.Tensor, w: torch.Tensor, policy: ExecutionPolicy,
+          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Matmul through the policy-selected datapath."""
+    if policy.matmul == "bf16":
+        out = x @ w.to(x.dtype)
+    elif policy.matmul == "cordic_kernel":
+        x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+        out = cordic_matmul(x2, w.to(torch.float32))
+        out = out.reshape(*x.shape[:-1], w.shape[-1]).to(x.dtype)
+    elif policy.matmul in ("fxp8", "fxp8_weight"):
+        raise NotImplementedError(f"matmul={policy.matmul!r} is ported with "
+                                  f"{_QUANT_ITEM}")
+    else:
+        raise ValueError(f"unknown matmul mode {policy.matmul!r}")
+    if bias is not None:
+        out = out + bias.to(out.dtype)
+    return out
+
+
+_EXACT_AFS = {
+    "relu": torch.relu,
+    "tanh": torch.tanh,
+    "sigmoid": torch.sigmoid,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "selu": F.selu,
+    "swish": F.silu,
+    "silu": F.silu,
+    "exp": torch.exp,
+    "identity": lambda x: x,
+}
+
+
+def af(x: torch.Tensor, name: str, policy: ExecutionPolicy) -> torch.Tensor:
+    """Activation ``name``: exact float under ``policy.af=None``."""
+    if policy.af is not None:
+        raise NotImplementedError(f"CORDIC activations (policy.af="
+                                  f"{policy.af}) are ported with "
+                                  f"{_CORDIC_AF_ITEM}")
+    if name not in _EXACT_AFS:
+        raise ValueError(f"unsupported AF {name!r}; choose from "
+                         f"{sorted(_EXACT_AFS)}")
+    return _EXACT_AFS[name](x).to(x.dtype)
+
+
+def softmax(x: torch.Tensor, policy: ExecutionPolicy, axis: int = -1
+            ) -> torch.Tensor:
+    if policy.softmax_cordic and policy.af is not None:
+        raise NotImplementedError(f"softmax_cordic=True is ported with "
+                                  f"{_CORDIC_AF_ITEM} and the cordic_softmax "
+                                  f"kernel (ROADMAP queue 2, item 3)")
+    return torch.softmax(x, dim=axis)
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5
+             ) -> torch.Tensor:
+    x32 = x.to(torch.float32)
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * gamma.to(x.dtype)
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float
+                ) -> torch.Tensor:
+    """(..., head_dim/2) rotary angles for integer positions."""
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=positions.device) / head_dim
+    inv_freq = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                            device=positions.device),
+                               exponent)
+    return positions.to(torch.float32)[..., None] * inv_freq
+
+
+def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """x: (..., S, H, D); angles: (..., S, D/2) broadcast over heads."""
+    sin = torch.sin(angles)[..., None, :].to(x.dtype)
+    cos = torch.cos(angles)[..., None, :].to(x.dtype)
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor, policy: ExecutionPolicy,
+           act: str = "silu") -> torch.Tensor:
+    g = dense(x, w_gate, policy)
+    u = dense(x, w_up, policy)
+    return dense(af(g, act, policy) * u, w_down, policy)
+
+
+def embedding_lookup(tokens: torch.Tensor, table: torch.Tensor
+                     ) -> torch.Tensor:
+    return table[tokens]
