@@ -7,17 +7,25 @@ Phases, in order; any failure exits non-zero and prints no result:
 
 1. device    — a CUDA card must be present; prints nvidia-smi's name and
                power limit.
-2. build     — builds every kernel of the serving path from the sources in
-               this checkout (nvcc, sm_90a), printing build time and ptxas'
-               register report.
+2. build     — builds every kernel from the sources in this checkout (one
+               nvcc per source, all started together, sm_90a), printing
+               build times and ptxas' register report.
 3. kernel    — holds ``cordic_mac`` bit-exact against its plain torch
                version on the card (FXP8/16/32, E_i = 0 stages, odd shapes,
                int32 wrap, and every shape the serving path gives it), and
                times kernel, plain version and bound at the serving shapes.
-4. reference — a reduced glm4-9b on the card (kernel) against the same
+4. davinci   — holds ``cordic_act`` (tanh, sigmoid, exp) and
+               ``cordic_softmax`` bit-exact against their plain versions at
+               FXP4/8/16, two iteration counts, odd shapes, the saturated
+               ends of each format and the serving run's shapes, and their
+               float frontends within the reference tests' bands.
+5. reference — a reduced glm4-9b on the card (kernel) against the same
                model on the CPU (plain version): logits within a stated
-               tolerance, equal greedy tokens.
-5. serve     — full-width glm4-9b (40 layers, d_model 4096, vocab 151552,
+               tolerance, equal greedy tokens.  Then the ``CORDIC_EXEC``
+               modules (``quantized_dense``, ``activate``) card against CPU,
+               and the reduced glm4-9b under ``CORDIC_EXEC`` card against
+               CPU: forward logits, and greedy outputs of the engine.
+6. serve     — full-width glm4-9b (40 layers, d_model 4096, vocab 151552,
                bf16, random weights from seed 0) under
                ``ExecutionPolicy(matmul="cordic_kernel")`` through the port's
                ``ServeEngine``: 4 requests, 8 new tokens each.  Asserts 281
@@ -26,12 +34,31 @@ Phases, in order; any failure exits non-zero and prints no result:
                single-stream prefill + decode; profiles one decode step; then
                holds the engine to single-stream decode on the reduced model
                too, whose greedy tokens vary.
+7. cordic_exec serve — the same model, parameters and traffic under the
+               paper's ``CORDIC_EXEC`` (W8A8 matmuls, DA-VINCI AFs): every
+               request served, tokens in the vocabulary, a second serve
+               gives the same tokens, no plain-version call; prefill and
+               decode times, tok/s, peak memory, one profiled decode step.
+               The second serve records the activations the DA-VINCI
+               kernels take: the gate pre-activations (prefill and
+               decode), the attention score rows and the logits.
+8. davinci path — the DA-VINCI kernels' path, the public entry points
+               ``repro_torch.kernels.cordic_act`` (sigmoid, on the gate
+               pre-activations) and ``cordic_softmax`` (on the score rows
+               and the logits), driven with every count set to 0 before and
+               read after; then each launch's raw words against the plain
+               version, and kernel, plain version and bound timed on them.
+               (The model's CORDIC AFs are ``activate``'s float-emulated
+               recurrences, as in the reference, so phase 7 launches
+               neither kernel.)
 
 The last three lines are nvidia-smi's name and power limit, one JSON
 object with a record per kernel, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import math
@@ -46,11 +73,22 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.configs import ExecutionPolicy, get_arch  # noqa: E402
+from repro_torch.configs import (CORDIC_EXEC, ExecutionPolicy,  # noqa: E402
+                                 get_arch)
+from repro_torch.core import activations as acts  # noqa: E402
 from repro_torch.core import fixed_point as fxp  # noqa: E402
-from repro_torch.kernels import common  # noqa: E402
+from repro_torch.core import quantization as quant  # noqa: E402
+from repro_torch.kernels import (common, cordic_act,  # noqa: E402
+                                 cordic_softmax)
+from repro_torch.kernels.cordic_act import kernel as act_kernel  # noqa: E402
+from repro_torch.kernels.cordic_act.ref import (  # noqa: E402
+    EXP_ARG_CLAMP, GUARD_BITS, cordic_act_raw_ref, exp_neg_raw_ref)
 from repro_torch.kernels.cordic_mac import kernel as mac_kernel  # noqa: E402
 from repro_torch.kernels.cordic_mac.ref import cordic_matmul_raw_ref  # noqa: E402
+from repro_torch.kernels.cordic_softmax import kernel as sm_kernel  # noqa: E402
+from repro_torch.kernels.cordic_softmax.ref import (  # noqa: E402
+    cordic_softmax_raw_ref)
+from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
 from repro_torch.models.spec import to_device  # noqa: E402
 from repro_torch.runtime.serve_loop import (Request, ServeConfig,  # noqa: E402
@@ -78,6 +116,27 @@ FULL_WIDTH = (40, 4096, 151552, "bfloat16")  # layers, d_model, vocab, dtype
 # Tolerance of the float reference: the reduced model with float32
 # matmuls on the card against the CPU; sums in another order.
 FLOAT_TOL = 1e-4
+
+# W8A16 is a float matmul: on the card its sums run in another order.
+# Largest |card - CPU| over the largest output; measured 5.0e-7 (float32)
+# and 2.0e-3 (bfloat16, half a bf16 ulp of the output) on an H100 80GB
+# HBM3 at 700 W.
+W8A16_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+
+# The DA-VINCI kernels as their float frontends run them by default:
+# FXP16, 5 hyperbolic and max(4, frac + guard) = 12 division iterations.
+AF_FMT = fxp.FXP16
+AF_N_HYP = 5
+AF_N_DIV = max(4, AF_FMT.frac_bits + GUARD_BITS)
+# Serving shapes of full-width glm4-9b at max_batch 4: gate
+# pre-activations of decode and of the 16-token prefill bucket; attention
+# score rows of that prefill (4 x 32 heads x 16 queries, 16 keys) and of
+# decode (4 x 32 heads, 64 cache positions); one vocabulary-wide block.
+DAVINCI_SHAPES = {
+    "cordic_act": ((7, 13), (4, 13696), (64, 13696)),
+    "cordic_softmax": ((7, 13), (4 * 32 * 16, 16), (4 * 32, 64),
+                       (4, 151552)),
+}
 
 
 def log(msg: str) -> None:
@@ -219,6 +278,122 @@ def phase_kernel(dev) -> dict:
     return {"rows": rows, "max_abs_err": max(errs)}
 
 
+# ---------------------------------------------------------------------------
+# DA-VINCI kernels: cordic_act and cordic_softmax
+# ---------------------------------------------------------------------------
+
+def exp_neg_ops(n_hyp: int) -> int:
+    """int32 operations of one exp_neg in cordic_af.cuh: the k extraction
+    and reduction (5), 6 per hyperbolic iteration (two shifts, a sign test,
+    three adds), the barrel shift with its clamp (5)."""
+    return 10 + 6 * n_hyp
+
+
+def act_ops(af: str, n_hyp: int, n_div: int) -> int:
+    """int32 operations per element of cordic_act.cu's act(): the AF's own
+    steps, exp_neg, 4 per division iteration (shift, sign test, two adds)
+    and the output latch (2)."""
+    own = {"exp": 5, "tanh": 12 + 4 * n_div, "sigmoid": 10 + 4 * n_div}[af]
+    return own + exp_neg_ops(n_hyp)
+
+
+def act_bound(af: str, n: int) -> tuple:
+    """(bytes ms, operations ms) of one cordic_act launch on n words: each
+    word read and written once, against the int32 operations above."""
+    return (8 * n / HBM_BYTES_PER_S * 1e3,
+            n * act_ops(af, AF_N_HYP, AF_N_DIV) / INT32_OPS_PER_S * 1e3)
+
+
+def softmax_bound(raw: torch.Tensor) -> tuple:
+    """(bytes ms, operations ms) of the row softmax on these words: each
+    word read and written once, against the function's int32 operations.
+    Per element the max (2), one exp_neg, the sum and the latch (10); the
+    divide only where exp_neg is not 0 (the zero-skip), counted from this
+    input.  The kernel's pass 3 recomputes exp_neg instead of keeping a
+    row; the function needs it once, so the bound counts it once."""
+    fb = AF_FMT.frac_bits + GUARD_BITS
+    a = torch.bitwise_left_shift(raw, GUARD_BITS)
+    d = torch.clamp(a - a.amax(dim=-1, keepdim=True),
+                    min=-fxp.constant_raw(EXP_ARG_CLAMP, fb))
+    live = int((exp_neg_raw_ref(d, fb, AF_N_HYP) != 0).sum())
+    n = raw.numel()
+    ops = n * (12 + exp_neg_ops(AF_N_HYP)) + live * 4 * AF_N_DIV
+    return 8 * n / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+
+
+def larger(t_bytes: float, t_ops: float) -> tuple:
+    """The bound and what sets it."""
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def plant_ends(x: torch.Tensor, fmt) -> torch.Tensor:
+    """Both saturated ends of the format and zero at the front."""
+    flat = x.view(-1)
+    flat[:3] = torch.tensor([fmt.raw_min, fmt.raw_max, 0], dtype=torch.int32)
+    return x
+
+
+def check_words(name: str, got, want, what: str, errs: list) -> None:
+    torch.cuda.synchronize()
+    errs.append(int((got.long() - want.long()).abs().max()))
+    bad = int((got != want).sum())
+    if bad:
+        raise AssertionError(f"{name} {what}: {bad} of {got.numel()} words "
+                             f"differ from the plain version")
+
+
+def phase_davinci(dev) -> dict:
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    errs = {"cordic_act": [], "cordic_softmax": []}
+    log("[davinci] bit-exactness against the plain versions")
+    for fmt_name, fmt in (("FXP4", fxp.FXP4), ("FXP8", fxp.FXP8),
+                          ("FXP16", fxp.FXP16)):
+        iters = ((AF_N_HYP, max(4, fmt.frac_bits + GUARD_BITS)), (12, 12))
+        for n_hyp, n_div in iters:
+            for shape in DAVINCI_SHAPES["cordic_act"]:
+                x = plant_ends(raw_words(gen, shape, fmt, dev), fmt)
+                for af in ("tanh", "sigmoid", "exp"):
+                    kw = dict(af=af, fmt=fmt, n_hyp=n_hyp, n_div=n_div)
+                    check_words("cordic_act",
+                                act_kernel.cordic_act_raw_cuda(x, **kw),
+                                cordic_act_raw_ref(x, **kw),
+                                f"{fmt_name} {af} {shape}", errs["cordic_act"])
+            for shape in DAVINCI_SHAPES["cordic_softmax"]:
+                x = fxp.quantize(torch.randn(shape, generator=gen, device=dev)
+                                 * 2 - 3, fmt)
+                x = plant_ends(x, fmt)
+                x[-1] = fmt.raw_min              # a constant row
+                kw = dict(fmt=fmt, n_hyp=n_hyp, n_div=n_div)
+                check_words("cordic_softmax",
+                            sm_kernel.cordic_softmax_raw_cuda(x, **kw),
+                            cordic_softmax_raw_ref(x, **kw),
+                            f"{fmt_name} {shape}", errs["cordic_softmax"])
+        log(f"  bit-exact: {fmt_name}, (n_hyp, n_div) {iters}: cordic_act x "
+            f"{{tanh, sigmoid, exp}} at {DAVINCI_SHAPES['cordic_act']}, "
+            f"cordic_softmax at {DAVINCI_SHAPES['cordic_softmax']}, both "
+            f"saturated ends")
+    x = (torch.rand((32, 64), generator=gen, device=dev) * 12 - 6)
+    bands = {}
+    for af, exact in (("tanh", torch.tanh), ("sigmoid", torch.sigmoid),
+                      ("exp", lambda v: torch.exp(torch.clamp(v, max=0)))):
+        bands[af] = ((cordic_act(x, af, n_hyp=12) - exact(x)).abs().max()
+                     .item(), (cordic_act(x, af) - exact(x)).abs().max()
+                     .item())
+    s = torch.randn((16, 64), generator=gen, device=dev) * 2
+    bands["softmax"] = tuple(
+        (cordic_softmax(s, **kw) - torch.softmax(s, -1)).abs().max().item()
+        for kw in ({"n_hyp": 12}, {}))
+    log("[davinci] float frontends against the exact functions, max abs err "
+        "(n_hyp=12, default): " + ", ".join(
+            f"{k} {a:.4f} {b:.4f}" for k, (a, b) in bands.items()))
+    if any(a >= 0.02 for a, _ in bands.values()) or any(
+            bands[k][1] >= 0.05 for k in ("tanh", "sigmoid", "softmax")):
+        raise AssertionError("a DA-VINCI frontend left the reference tests' "
+                             "band (0.02 at n_hyp=12, 0.05 at the default)")
+    return errs
+
+
 def phase_reference(dev) -> None:
     """Reduced glm4-9b (float32) on the card against two references.
 
@@ -267,6 +442,98 @@ def phase_reference(dev) -> None:
     if not (torch.isfinite(got).all() and got.shape == (2, 12, 256)
             and torch.equal(got, plain)):
         raise AssertionError("cordic model: kernel and plain version disagree")
+
+
+def phase_cordic_exec_reference(dev) -> dict:
+    """CORDIC_EXEC's modules and the reduced model, card against CPU.
+
+    W8A8 ``quantized_dense`` and ``activate`` must be bit-equal: their float
+    ops are the reference's, one rounded operation at a time
+    (``core/libm.py``), and the int8 product is exact.  W8A16 is a float
+    matmul, summed in another order on the card: recorded, and held to
+    W8A16_TOL of the largest output.  The reduced model's logits, float32
+    and bfloat16, must be equal: the last-bit float differences of
+    attention and rms_norm did not move one int8 activation word on these
+    inputs (H100 80GB HBM3, 700 W).
+    """
+    gen = torch.Generator().manual_seed(2)
+    out = {}
+    log("[cordic_exec] modules, card against CPU")
+    for dtype in (torch.float32, torch.bfloat16):
+        for m, k, n in ((4, 4096, 256), (64, 4096, 256), (4, 13696, 512)):
+            x = torch.randn((m, k), generator=gen).to(dtype)
+            w = (torch.randn((k, n), generator=gen) / math.sqrt(k)).to(dtype)
+            for name, pol in (("W8A8", quant.QuantPolicy()),
+                              ("W8A16", quant.QuantPolicy(act_bits=None))):
+                got = quant.quantized_dense(x.to(dev), w.to(dev), pol).cpu()
+                want = quant.quantized_dense(x, w, pol)
+                err = (got.float() - want.float()).abs().max().item()
+                rel = err / want.float().abs().max().item()
+                out[name, dtype, m, k, n] = rel
+                log(f"  quantized_dense {name} {str(dtype)[6:]} M={m} K={k} "
+                    f"N={n}: equal {torch.equal(got, want)}, max abs err "
+                    f"{err:.3e} ({rel:.3e} of the largest output)")
+                if name == "W8A8" and not torch.equal(got, want):
+                    raise AssertionError("W8A8 quantized_dense: card and CPU "
+                                         "differ")
+                if name == "W8A16" and not rel <= W8A16_TOL[dtype]:
+                    raise AssertionError("W8A16 quantized_dense beyond its "
+                                         "tolerance")
+    x = torch.cat([torch.rand(4000, generator=gen) * 16 - 8,
+                   torch.randn(96, generator=gen) * 40]).reshape(-1, 64)
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = x.to(dtype)
+        for bits in (8, 16):
+            pol = acts.CordicPolicy(bits=bits)
+            for name in acts.SUPPORTED_AFS:
+                got = acts.activate(xd.to(dev), name, pol).cpu()
+                if not torch.equal(got, acts.activate(xd, name, pol)):
+                    raise AssertionError(f"activate {name} FXP{bits} "
+                                         f"{dtype}: card and CPU differ")
+    log(f"  activate: all {len(acts.SUPPORTED_AFS)} AFs at FXP8 and FXP16, "
+        f"float32 and bfloat16 inputs: card equals CPU bit for bit")
+
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, 256,
+                                                                (2, 12)))
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(
+            get_arch("glm4-9b").reduced().scaled(dtype=dtype),
+            exec_policy=CORDIC_EXEC)
+        params = build_model(cfg, "cpu").init(seed=0)
+        with torch.inference_mode():
+            got = build_model(cfg, dev).forward(
+                to_device(params, dev), {"tokens": tokens.to(dev)}).cpu()
+            want = build_model(cfg, "cpu").forward(params, {"tokens": tokens})
+        err = (got.float() - want.float()).abs().max().item()
+        agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+        out[dtype] = (err, agree)
+        log(f"[cordic_exec] reduced glm4-9b {dtype}: card vs CPU max abs "
+            f"logit err {err:.3e}, greedy agreement {agree:.3f} "
+            f"(equal: {torch.equal(got, want)})")
+        if not (torch.isfinite(got).all() and got.shape == (2, 12, 256)
+                and torch.equal(got, want)):
+            raise AssertionError("CORDIC_EXEC reduced model: card and CPU "
+                                 "logits differ")
+        # the engine on the card and on the CPU: 6 requests of mixed
+        # length through 4 slots, equal greedy outputs per request
+        rng = np.random.default_rng(3)
+        traffic = [(i, rng.integers(0, 256, n).astype(np.int32), k)
+                   for i, (n, k) in enumerate(zip((5, 11, 16, 3, 24, 8),
+                                                  (4, 9, 2, 12, 1, 6)))]
+        served = {}
+        for where, p in ((dev, to_device(params, dev)), ("cpu", params)):
+            done = ServeEngine(build_model(cfg, where), p, ServeConfig(
+                max_batch=4, max_seq=64)).serve(
+                [Request(i, prompt, max_new_tokens=k)
+                 for i, prompt, k in traffic])
+            served[str(where)] = {r.rid: r.output.tolist() for r in done}
+        same = served[str(dev)] == served["cpu"]
+        log(f"[cordic_exec] reduced glm4-9b {dtype}: engine on the card "
+            f"equals the engine on the CPU for all {len(traffic)} requests: "
+            f"{same}")
+        if not same:
+            raise AssertionError("CORDIC_EXEC engine: card and CPU differ")
+    return out
 
 
 def single_stream(model, params, prompt, max_new, max_seq) -> list:
@@ -318,68 +585,90 @@ def profile_step(model, params, engine) -> None:
         log(f"  {t:8.2f} ms {t / busy:6.1%} x{n:4d}  {key[:90]}")
 
 
-def phase_serve(dev, smi: str) -> dict:
-    cfg = dataclasses.replace(get_arch("glm4-9b"),
-                              exec_policy=ExecutionPolicy(
-                                  matmul="cordic_kernel"))
+def serve_traffic(vocab: int):
+    """The serving phases' requests: one warm-up request, then 4 of 8-16
+    prompt tokens and 8 new tokens each; and the generator, for more."""
+    rng = np.random.default_rng(0)
+    warm = [Request(100, rng.integers(0, vocab, 8).astype(np.int32),
+                    max_new_tokens=2)]
+    reqs = [Request(i, rng.integers(0, vocab, int(n)).astype(np.int32),
+                    max_new_tokens=8)
+            for i, n in enumerate(rng.integers(8, 17, 4))]
+    return warm, reqs, rng
+
+
+def timed_serve(engine, reqs, dev):
+    """Serve ``reqs`` with every kernel count set to 0 just before; returns
+    the requests and that run's engine metrics, counts and peak memory."""
+    keys = ("prefill_s", "decode_s", "decode_steps", "decode_tokens")
+    base = {k: engine.metrics[k] for k in keys}
+    prefills_before = sum(engine.prefill_counts.values())
+    torch.cuda.reset_peak_memory_stats(dev)
+    common.reset_counts()
+    done = engine.serve(reqs)
+    torch.cuda.synchronize()
+    run = {k: engine.metrics[k] - base[k] for k in keys}
+    run["prefills"] = sum(engine.prefill_counts.values()) - prefills_before
+    run["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    run["counts"] = {n: (common.get_kernel(n).launches,
+                         common.get_kernel(n).plain_calls)
+                     for n in common.registered_kernels()}
+    if len(done) != len(reqs):
+        raise AssertionError("not every request was served")
+    vocab = engine.model.cfg.vocab_size
+    for r in done:
+        if len(r.output) != r.max_new_tokens or not np.all(
+                (r.output >= 0) & (r.output < vocab)):
+            raise AssertionError(f"request {r.rid}: bad output {r.output}")
+    return done, run
+
+
+def log_times(tag: str, run: dict, smi: str) -> None:
+    log(f"[{tag}] prefill (4 x 16 tokens, M=64) {run['prefill_s'] * 1e3:.1f} "
+        f"ms; decode {run['decode_s'] / run['decode_steps'] * 1e3:.1f} "
+        f"ms/step, {run['decode_tokens'] / run['decode_s']:.2f} tok/s; peak "
+        f"allocated {run['peak_gb']:.2f} GB [{smi}]")
+
+
+def full_width(policy: ExecutionPolicy):
+    cfg = dataclasses.replace(get_arch("glm4-9b"), exec_policy=policy)
     if (cfg.n_layers, cfg.d_model, cfg.vocab_size, cfg.dtype) != FULL_WIDTH:
         raise AssertionError(f"glm4-9b is not at full width: {cfg}")
+    return cfg
+
+
+def phase_serve(dev, smi: str) -> dict:
+    cfg = full_width(ExecutionPolicy(matmul="cordic_kernel"))
     t0 = time.monotonic()
     model = build_model(cfg, dev)
     params = model.init(seed=0)
     torch.cuda.synchronize()
     log(f"[serve] glm4-9b full width: {model.n_params() / 1e9:.3f} B params "
         f"initialised on the card in {time.monotonic() - t0:.1f} s")
-    max_seq, max_new = 64, 8
+    max_seq = 64
     engine = ServeEngine(model, params, ServeConfig(max_batch=4,
                                                     max_seq=max_seq))
-    rng = np.random.default_rng(0)
-    warm = [Request(100, rng.integers(0, cfg.vocab_size, 8).astype(np.int32),
-                    max_new_tokens=2)]
+    warm, reqs, rng = serve_traffic(cfg.vocab_size)
     engine.serve(warm)          # first-touch costs (cuBLAS handles etc.)
-    reqs = [Request(i, rng.integers(0, cfg.vocab_size, int(n)).astype(
-        np.int32), max_new_tokens=max_new)
-        for i, n in enumerate(rng.integers(8, 17, 4))]
-    spec = common.get_kernel("cordic_mac")
-    base = {k: engine.metrics[k] for k in ("prefill_s", "decode_s",
-                                           "decode_steps", "decode_tokens")}
-    prefills_before = sum(engine.prefill_counts.values())
-    torch.cuda.reset_peak_memory_stats(dev)
-    common.reset_counts()
-    done = engine.serve(reqs)
-    torch.cuda.synchronize()
-    launches, plain = spec.launches, spec.plain_calls
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    prefills = sum(engine.prefill_counts.values()) - prefills_before
-    steps = engine.metrics["decode_steps"] - base["decode_steps"]
-    forwards = prefills + steps
-    log(f"[serve] {len(done)} requests, {prefills} prefill(s), {steps} decode "
-        f"steps: cordic_mac launches {launches} (= {launches / forwards:.1f} "
-        f"per forward call), plain-version calls {plain}")
-    if len(done) != len(reqs):
-        raise AssertionError("not every request was served")
-    for r in done:
-        if len(r.output) != max_new or not np.all(
-                (r.output >= 0) & (r.output < cfg.vocab_size)):
-            raise AssertionError(f"request {r.rid}: bad output {r.output}")
+    done, run = timed_serve(engine, reqs, dev)
+    launches, plain = run["counts"]["cordic_mac"]
+    forwards = run["prefills"] + run["decode_steps"]
+    log(f"[serve] {len(done)} requests, {run['prefills']} prefill(s), "
+        f"{run['decode_steps']} decode steps: cordic_mac launches {launches} "
+        f"(= {launches / forwards:.1f} per forward call), plain-version calls "
+        f"{plain}")
     if launches != LAUNCHES_PER_FORWARD * forwards or plain != 0:
         raise AssertionError(f"expected {LAUNCHES_PER_FORWARD} launches per "
                              f"forward call and no plain call")
-    prefill_s = engine.metrics["prefill_s"] - base["prefill_s"]
-    decode_s = engine.metrics["decode_s"] - base["decode_s"]
-    decode_tok = engine.metrics["decode_tokens"] - base["decode_tokens"]
-    log(f"[serve] prefill (4 x 16 tokens, M=64) {prefill_s * 1e3:.1f} ms; "
-        f"decode {decode_s / steps * 1e3:.1f} ms/step, "
-        f"{decode_tok / decode_s:.2f} tok/s; peak allocated {peak_gb:.2f} GB "
-        f"[{smi}]")
+    log_times("serve", run, smi)
     profile_step(model, params, engine)
     r0 = min(done, key=lambda r: r.rid)
-    ref = single_stream(model, params, r0.prompt, max_new, max_seq)
+    ref = single_stream(model, params, r0.prompt, r0.max_new_tokens, max_seq)
     log(f"[serve] request {r0.rid}: engine {r0.output.tolist()} single-stream "
         f"{ref}")
     if r0.output.tolist() != ref:
         raise AssertionError("engine output differs from single-stream decode")
-    del engine, params
+    del engine
     torch.cuda.empty_cache()
     # With random fan-in-scaled weights every |w| < 1/16 runs through the
     # 5-stage FXP16 recurrence as +-1/16, activations grow and saturate,
@@ -389,23 +678,167 @@ def phase_serve(dev, smi: str) -> dict:
     small = dataclasses.replace(get_arch("glm4-9b").reduced(),
                                 exec_policy=ExecutionPolicy(
                                     matmul="cordic_kernel"))
-    model = build_model(small, dev)
-    params = model.init(seed=0)
-    engine = ServeEngine(model, params, ServeConfig(max_batch=4,
-                                                    max_seq=max_seq))
+    small_model = build_model(small, dev)
+    small_params = small_model.init(seed=0)
+    engine = ServeEngine(small_model, small_params,
+                         ServeConfig(max_batch=4, max_seq=max_seq))
     reqs = [Request(i, rng.integers(0, small.vocab_size, n).astype(np.int32),
                     max_new_tokens=k)
             for i, (n, k) in enumerate(zip((5, 11, 16, 3, 24, 8),
                                            (4, 9, 2, 12, 1, 6)))]
     done = engine.serve(reqs)
     bad = [r.rid for r in done if r.output.tolist() != single_stream(
-        model, params, r.prompt, r.max_new_tokens, max_seq)]
+        small_model, small_params, r.prompt, r.max_new_tokens, max_seq)]
     log(f"[serve] reduced glm4-9b (bf16, cordic_kernel): {len(done)} requests "
         f"through 4 slots, {len({t for r in done for t in r.output})} distinct "
         f"tokens, equal to single-stream decode: {not bad}")
     if bad or len(done) != len(reqs):
         raise AssertionError(f"engine differs from single-stream for {bad}")
-    return {"launches": launches}
+    return {"launches": launches, "params": params}
+
+
+@contextlib.contextmanager
+def record_activations(store: dict, vocab: int):
+    """Keep the first input of each shape that reaches ``layers.af`` (the
+    gate pre-activations) and ``layers.softmax`` (the attention scores),
+    and the first vocabulary-wide ``layers.dense`` output (the logits)."""
+    af, softmax, dense = L.af, L.softmax, L.dense
+
+    def keep(kind, t):
+        if (kind, tuple(t.shape)) not in store:
+            store[kind, tuple(t.shape)] = t.detach().clone()
+
+    def rec_af(x, name, policy, axis=-1):
+        keep("gate", x)
+        return af(x, name, policy, axis)
+
+    def rec_softmax(x, policy, axis=-1):
+        keep("scores", x)
+        return softmax(x, policy, axis)
+
+    def rec_dense(x, w, policy, bias=None):
+        out = dense(x, w, policy, bias)
+        if w.shape[-1] == vocab:
+            keep("logits", out)
+        return out
+
+    L.af, L.softmax, L.dense = rec_af, rec_softmax, rec_dense
+    try:
+        yield store
+    finally:
+        L.af, L.softmax, L.dense = af, softmax, dense
+
+
+def phase_cordic_exec_serve(dev, smi: str, params) -> dict:
+    """Full-width glm4-9b under CORDIC_EXEC, phase 6's parameters and
+    traffic."""
+    cfg = full_width(CORDIC_EXEC)
+    model = build_model(cfg, dev)
+    max_seq = 64
+    warm, reqs, _ = serve_traffic(cfg.vocab_size)
+    engine = ServeEngine(model, params, ServeConfig(max_batch=4,
+                                                    max_seq=max_seq))
+    engine.serve(warm)
+    done, run = timed_serve(engine, reqs, dev)
+    plain = sum(p for _, p in run["counts"].values())
+    log(f"[cordic_exec serve] glm4-9b full width under CORDIC_EXEC: "
+        f"{len(done)} requests, {run['prefills']} prefill(s), "
+        f"{run['decode_steps']} decode steps; kernel launches "
+        f"{ {n: c[0] for n, c in run['counts'].items()} }, plain-version "
+        f"calls {plain}")
+    if plain:
+        raise AssertionError("a plain version ran on the card")
+    log_times("cordic_exec serve", run, smi)
+    profile_step(model, params, engine)
+    first = {r.rid: r.output.tolist() for r in done}
+    captured: dict = {}
+    with record_activations(captured, cfg.vocab_size):
+        again = ServeEngine(model, params, ServeConfig(
+            max_batch=4, max_seq=max_seq)).serve(
+            [Request(r.rid, r.prompt, max_new_tokens=r.max_new_tokens)
+             for r in reqs])
+    second = {r.rid: r.output.tolist() for r in again}
+    log(f"[cordic_exec serve] tokens {first}; a second serve on a fresh "
+        f"engine gives the same tokens: {second == first}; recorded "
+        f"{sorted(captured)}")
+    if second != first:
+        raise AssertionError("CORDIC_EXEC serving is not deterministic")
+    return {"run": run, "captured": captured}
+
+
+def phase_davinci_path(dev, captured: dict, errs: dict) -> dict:
+    """The DA-VINCI kernels through their public entry points on the
+    serving run's activations; then every launch's words against the plain
+    version, and times and bounds at those inputs."""
+    rows = {
+        "cordic_act": [v.reshape(-1, v.shape[-1]) for (kind, _), v
+                       in sorted(captured.items()) if kind == "gate"],
+        "cordic_softmax": [v.reshape(-1, v.shape[-1]) for (kind, _), v
+                           in sorted(captured.items())
+                           if kind in ("scores", "logits")],
+    }
+    common.reset_counts()
+    outs = ([cordic_act(x, "sigmoid") for x in rows["cordic_act"]]
+            + [cordic_softmax(x) for x in rows["cordic_softmax"]])
+    torch.cuda.synchronize()
+    counts = {n: (common.get_kernel(n).launches,
+                  common.get_kernel(n).plain_calls) for n in rows}
+    log(f"[davinci path] cordic_act (sigmoid) on "
+        f"{[tuple(x.shape) for x in rows['cordic_act']]}, cordic_softmax on "
+        f"{[tuple(x.shape) for x in rows['cordic_softmax']]}: (launches, "
+        f"plain calls) {counts}")
+    for n, xs in rows.items():
+        if counts[n] != (len(xs), 0):
+            raise AssertionError(f"{n}: expected {len(xs)} launches and no "
+                                 f"plain call, got {counts[n]}")
+    for o in outs:
+        if not (torch.isfinite(o).all() and (o >= 0).all() and (o <= 1).all()):
+            raise AssertionError("a DA-VINCI output left [0, 1]")
+
+    kw = dict(fmt=AF_FMT, n_hyp=AF_N_HYP, n_div=AF_N_DIV)
+    launch = {
+        "cordic_act": lambda r: act_kernel.cordic_act_raw_cuda(
+            r, af="sigmoid", **kw),
+        "cordic_softmax": lambda r: sm_kernel.cordic_softmax_raw_cuda(r, **kw),
+    }
+    plain = {
+        "cordic_act": lambda r: cordic_act_raw_ref(r, af="sigmoid", **kw),
+        "cordic_softmax": lambda r: cordic_softmax_raw_ref(r, **kw),
+    }
+    library = {"cordic_act": torch.sigmoid,
+               "cordic_softmax": lambda v: torch.softmax(v, -1)}
+    records = {}
+    for n, xs in rows.items():
+        tot = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+        for x in xs:
+            x = x.to(torch.float32)
+            if n == "cordic_softmax":       # as the frontend quantizes
+                x = x - x.amax(dim=-1, keepdim=True)
+            raw = fxp.quantize(x, AF_FMT).contiguous()
+            check_words(n, launch[n](raw), plain[n](raw),
+                        f"serving input {tuple(raw.shape)}", errs[n])
+            ms = time_ms(launch[n], [(raw,)], reps=20)
+            plain_ms = time_ms(plain[n], [(raw,)], reps=3)
+            t_b, t_o = (act_bound("sigmoid", raw.numel())
+                        if n == "cordic_act" else softmax_bound(raw))
+            bnd, by = larger(t_b, t_o)
+            ctx = time_ms(library[n], [(x,)], reps=20)
+            log(f"  {n} {tuple(raw.shape)}: bit-exact; kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, bound {bnd:.4f} ms ({by}), "
+                f"kernel/bound {ms / bnd:.2f} [context only: float "
+                f"{'torch.sigmoid' if n == 'cordic_act' else 'torch.softmax'}"
+                f" {ctx:.4f} ms]")
+            tot["ms"] += ms
+            tot["plain_ms"] += plain_ms
+            tot["bytes"] += t_b
+            tot["ops"] += t_o
+        bnd, by = larger(tot["bytes"], tot["ops"])
+        records[n] = {"launches": counts[n][0], "ms": tot["ms"],
+                      "plain_ms": tot["plain_ms"], "bound_ms": bnd,
+                      "bound_by": by, "max_abs_err": max(errs[n]),
+                      "work": f"the DA-VINCI path: "
+                              f"{[tuple(x.shape) for x in xs]}"}
+    return records
 
 
 def main() -> int:
@@ -419,15 +852,28 @@ def main() -> int:
     log(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
-    built = mac_kernel.library()
-    log(f"[build] cordic_mac: {built.path.name} in {built.seconds:.1f} s")
-    for line in built.log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            log(f"  ptxas: {line.strip()}")
+    libraries = {"cordic_mac": mac_kernel.library,
+                 "cordic_act": act_kernel.library,
+                 "cordic_softmax": sm_kernel.library}
+    t0 = time.monotonic()
+    with concurrent.futures.ThreadPoolExecutor(len(libraries)) as pool:
+        futures = {n: pool.submit(f) for n, f in libraries.items()}
+        built = {n: f.result() for n, f in futures.items()}
+    log(f"[build] {len(built)} libraries, nvcc in parallel: "
+        f"{time.monotonic() - t0:.1f} s")
+    for name, lib in built.items():
+        log(f"[build] {name}: {lib.path.name} in {lib.seconds:.1f} s")
+        for line in lib.log.splitlines():
+            if "registers" in line or "Compiling entry" in line:
+                log(f"  ptxas: {line.strip()}")
 
     t_kernel = phase_kernel(dev)
+    davinci_errs = phase_davinci(dev)
     phase_reference(dev)
+    phase_cordic_exec_reference(dev)
     served = phase_serve(dev, smi)
+    exec_served = phase_cordic_exec_serve(dev, smi, served.pop("params"))
+    davinci = phase_davinci_path(dev, exec_served["captured"], davinci_errs)
 
     # the record's work: one decode forward call, the 281 launches at
     # M = max_batch = 4; its bound is the larger of all their bytes over
@@ -451,8 +897,14 @@ def main() -> int:
         "work": f"one decode forward call of glm4-9b: "
                 f"{LAUNCHES_PER_FORWARD} launches at M={m}",
     }
+    records = [record]
+    for name, rec in davinci.items():
+        spec = common.get_kernel(name)
+        records.append({"name": name, "route": "cuda", "source": spec.source,
+                        "replaces": spec.replaces, **rec,
+                        "library_ms": None})
     log(smi)
-    log(json.dumps({"kernels": [record]}))
+    log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,27 +2,19 @@
 
 Every architecture is an :class:`ArchConfig`; the paper's technique
 enters through :class:`ExecutionPolicy` (CORDIC matmul path, DA-VINCI
-AFs, CAESAR pruning), which every layer consults.  The policy dataclasses
-it names are kept here as local copies, fields and defaults only: the
-modules that consume them (``core/activations``, ``core/quantization``,
-``core/pruning``) are ported with the ``CORDIC_EXEC`` slice.
+AFs, CAESAR pruning), which every layer consults.  ``CordicPolicy`` and
+``QuantPolicy`` come from the modules that consume them
+(``core/activations``, ``core/quantization``); ``PruningPolicy`` is a
+local copy, fields and defaults only, until ``core/pruning`` is ported
+with training (serving never prunes).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
-
-@dataclasses.dataclass(frozen=True)
-class CordicPolicy:
-    """Runtime-reconfigurable RPE datapath configuration (the ``sel_*`` pins)."""
-
-    bits: int = 16
-    n_linear: int = 5
-    n_hyperbolic: int = 5
-    n_division: int = 4
-    range_extend: bool = True
-    rounding: str = "rne"
+from repro_torch.core.activations import CordicPolicy
+from repro_torch.core.quantization import QuantPolicy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,16 +24,6 @@ class PruningPolicy:
     rate: float = 0.40
     n: Optional[int] = None
     m: Optional[int] = None
-
-
-@dataclasses.dataclass(frozen=True)
-class QuantPolicy:
-    """Per-layer quantization policy scheduled by CAESAR."""
-
-    bits: int = 8
-    per_channel: bool = True
-    pow2_scale: bool = True
-    act_bits: Optional[int] = 8
 
 
 @dataclasses.dataclass(frozen=True)

@@ -64,6 +64,13 @@ FXP8 = FxpFormat(8, 4)
 FXP16 = FxpFormat(16, 8)
 FXP32 = FxpFormat(32, 16)
 
+_BY_BITS = {4: FXP4, 8: FXP8, 16: FXP16, 32: FXP32}
+
+
+def format_for_bits(bits: int) -> FxpFormat:
+    """The paper's format of width ``bits`` (4, 8, 16 or 32)."""
+    return _BY_BITS[bits]
+
 
 def quantize(x: Union[torch.Tensor, float], fmt: FxpFormat,
              rounding: str = "rne") -> torch.Tensor:
@@ -91,6 +98,11 @@ def dequantize(raw: torch.Tensor, fmt: FxpFormat) -> torch.Tensor:
     return raw.to(torch.float32) * fmt.resolution
 
 
+def saturate(raw: torch.Tensor, fmt: FxpFormat) -> torch.Tensor:
+    """Clamp a wide accumulator back into the format's representable range."""
+    return torch.clamp(raw, fmt.raw_min, fmt.raw_max).to(torch.int32)
+
+
 def ashr(raw: torch.Tensor, shift) -> torch.Tensor:
     """Arithmetic shift right — the hardware's 2**-i (toward -inf)."""
     return torch.bitwise_right_shift(raw, shift)
@@ -100,3 +112,15 @@ def constant(value: float, fmt: FxpFormat) -> int:
     """Quantized Python-level constant (half-to-even, then clipped)."""
     raw = int(np.round(value * fmt.scale))
     return int(np.clip(raw, fmt.raw_min, fmt.raw_max))
+
+
+def constant_raw(value: float, frac_bits: int) -> int:
+    """Unclamped constant at an arbitrary internal precision (guard bits),
+    half-to-even."""
+    return int(np.round(value * 2.0 ** frac_bits))
+
+
+def roundtrip(x: Union[torch.Tensor, float], fmt: FxpFormat,
+              rounding: str = "rne") -> torch.Tensor:
+    """Quantize-dequantize: the value the hardware actually sees."""
+    return dequantize(quantize(x, fmt, rounding), fmt)

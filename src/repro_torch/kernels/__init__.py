@@ -1,2 +1,5 @@
-"""Kernel families of the port.  Importing this package registers them."""
+"""Kernel families of the port.  Importing this package registers them and
+exports their float frontends."""
+from repro_torch.kernels.cordic_act.ops import cordic_act  # noqa: F401
 from repro_torch.kernels.cordic_mac.ops import cordic_matmul  # noqa: F401
+from repro_torch.kernels.cordic_softmax.ops import cordic_softmax  # noqa: F401

@@ -12,7 +12,8 @@
   with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
   interface, at first use, into ``build/`` at the repository root, and
   loads it with ``ctypes``.
-* **gradients** — :func:`ste`: quantized forward, exact float backward.
+* **gradients** — :func:`ste` (from :mod:`repro_torch.core.ste`):
+  quantized forward, exact float backward.
 """
 from __future__ import annotations
 
@@ -28,6 +29,8 @@ from pathlib import Path
 from typing import Any, Callable, Dict, Sequence, Tuple
 
 import torch
+
+from repro_torch.core.ste import ste  # noqa: F401
 
 # ---------------------------------------------------------------------------
 # Kernel registry
@@ -120,6 +123,7 @@ class BuiltLibrary:
 
 
 _LIBS: Dict[str, BuiltLibrary] = {}
+_LIB_LOCKS: Dict[str, threading.Lock] = {}
 _LIBS_LOCK = threading.Lock()
 
 
@@ -134,16 +138,22 @@ def _nvcc() -> str:
 
 
 def load_library(name: str, sources: Sequence[Path],
-                 signatures: Dict[str, Tuple[Any, list]]) -> BuiltLibrary:
+                 signatures: Dict[str, Tuple[Any, list]],
+                 headers: Sequence[Path] = ()) -> BuiltLibrary:
     """Build (once per source content) and load ``lib<name>.so``.
 
-    ``signatures`` maps each C entry point to its ``(restype, argtypes)``;
-    they are set once, when the library is loaded."""
+    ``headers`` are the sources' includes: they enter the content hash but
+    not the ``nvcc`` command.  ``signatures`` maps each C entry point to
+    its ``(restype, argtypes)``; they are set once, when the library is
+    loaded.  Libraries of different names build concurrently when called
+    from several threads."""
     with _LIBS_LOCK:
+        lock = _LIB_LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if name in _LIBS:
             return _LIBS[name]
         digest = hashlib.sha256()
-        for src in sources:
+        for src in (*sources, *headers):
             digest.update(Path(src).read_bytes())
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         path = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
@@ -181,36 +191,3 @@ def stream_ptr(device: torch.device) -> ctypes.c_void_p:
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
-
-
-# ---------------------------------------------------------------------------
-# Straight-through gradients
-# ---------------------------------------------------------------------------
-
-
-def ste(fwd: Callable[..., torch.Tensor],
-        grad: Callable[..., torch.Tensor]) -> Callable[..., torch.Tensor]:
-    """Quantized forward, exact float backward (straight-through).
-
-    ``fwd`` runs the (non-differentiable) kernel; the backward pass is the
-    exact VJP of ``grad`` at the primal inputs.  Static configuration must
-    already be bound into both callables; the result takes tensors only.
-    """
-
-    class _Ste(torch.autograd.Function):
-        @staticmethod
-        def forward(ctx, *args):
-            ctx.save_for_backward(*args)
-            return fwd(*args)
-
-        @staticmethod
-        def backward(ctx, g):
-            args = [a.detach().requires_grad_(need)
-                    for a, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
-            with torch.enable_grad():
-                out = grad(*args)
-            needs = [a for a in args if a.requires_grad]
-            got = iter(torch.autograd.grad(out, needs, g) if needs else ())
-            return tuple(next(got) if a.requires_grad else None for a in args)
-
-    return _Ste.apply

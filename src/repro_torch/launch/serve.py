@@ -1,8 +1,14 @@
 """Serving launcher: batched requests through the continuous-batching engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \
-        --reduced --requests 8 --max-new 16 --matmul cordic_kernel
+        --reduced --requests 8 --max-new 16 --policy cordic_kernel
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \
+        --policy cordic_exec --requests 4 --max-new 8 --max-seq 64
 
+``--policy`` picks the execution policy: ``bf16`` (float matmuls),
+``cordic_kernel`` (every projection through the cordic_mac kernel) or
+``cordic_exec``, the paper's ``CORDIC_EXEC`` (W8A8 matmuls with pow-2
+scales, DA-VINCI CORDIC AFs); the config's own policy when omitted.
 Runs on ``cuda`` unless ``--device cpu`` is given.
 """
 from __future__ import annotations
@@ -13,9 +19,15 @@ import time
 
 import numpy as np
 
-from repro_torch.configs import ExecutionPolicy, get_arch
+from repro_torch.configs import CORDIC_EXEC, ExecutionPolicy, get_arch
 from repro_torch.models.model_zoo import build_model
 from repro_torch.runtime.serve_loop import Request, ServeConfig, ServeEngine
+
+POLICIES = {
+    "bf16": ExecutionPolicy(matmul="bf16"),
+    "cordic_kernel": ExecutionPolicy(matmul="cordic_kernel"),
+    "cordic_exec": CORDIC_EXEC,
+}
 
 
 def main(argv=None):
@@ -29,19 +41,15 @@ def main(argv=None):
     ap.add_argument("--max-seq", type=int, default=256)
     ap.add_argument("--device", default="cuda",
                     help="torch device the model runs on (default cuda)")
-    ap.add_argument("--matmul", choices=("bf16", "cordic_kernel"),
-                    default=None,
-                    help="matmul datapath (default: the config's policy); "
-                         "cordic_kernel runs every projection through the "
-                         "cordic_mac kernel")
+    ap.add_argument("--policy", choices=sorted(POLICIES), default=None,
+                    help="execution policy (default: the config's)")
     args = ap.parse_args(argv)
 
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    if args.matmul is not None:
-        cfg = dataclasses.replace(
-            cfg, exec_policy=ExecutionPolicy(matmul=args.matmul))
+    if args.policy is not None:
+        cfg = dataclasses.replace(cfg, exec_policy=POLICIES[args.policy])
     model = build_model(cfg, args.device)
     params = model.init(args.seed)
     engine = ServeEngine(model, params, ServeConfig(

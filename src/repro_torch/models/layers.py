@@ -1,23 +1,16 @@
 """Common model layers, routed through the ExecutionPolicy so the paper's
-CORDIC datapath is an execution mode of every architecture.
-
-Modes not ported yet raise ``NotImplementedError`` naming the ROADMAP
-item (queue 1) that ports them; none quietly runs something else.
-"""
+CORDIC datapath (FxP8 MAC + DA-VINCI AFs) is an execution mode of every
+architecture."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ExecutionPolicy
+from repro_torch.core.activations import activate
+from repro_torch.core.quantization import QuantPolicy, quantized_dense
 from repro_torch.kernels.cordic_mac.ops import cordic_matmul
-
-_QUANT_ITEM = ("ROADMAP queue 1, item 4 (core/quantization.py, W8A8 "
-               "quantized_dense)")
-_CORDIC_AF_ITEM = ("ROADMAP queue 1, item 4 (core/activations.py, DA-VINCI "
-                   "CORDIC AFs)")
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, policy: ExecutionPolicy,
@@ -29,9 +22,10 @@ def dense(x: torch.Tensor, w: torch.Tensor, policy: ExecutionPolicy,
         x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
         out = cordic_matmul(x2, w.to(torch.float32))
         out = out.reshape(*x.shape[:-1], w.shape[-1]).to(x.dtype)
-    elif policy.matmul in ("fxp8", "fxp8_weight"):
-        raise NotImplementedError(f"matmul={policy.matmul!r} is ported with "
-                                  f"{_QUANT_ITEM}")
+    elif policy.matmul == "fxp8":
+        out = quantized_dense(x, w, policy.quant)
+    elif policy.matmul == "fxp8_weight":
+        out = quantized_dense(x, w, QuantPolicy(act_bits=None))
     else:
         raise ValueError(f"unknown matmul mode {policy.matmul!r}")
     if bias is not None:
@@ -39,37 +33,20 @@ def dense(x: torch.Tensor, w: torch.Tensor, policy: ExecutionPolicy,
     return out
 
 
-_EXACT_AFS = {
-    "relu": torch.relu,
-    "tanh": torch.tanh,
-    "sigmoid": torch.sigmoid,
-    "gelu": lambda x: F.gelu(x, approximate="tanh"),
-    "selu": F.selu,
-    "swish": F.silu,
-    "silu": F.silu,
-    "exp": torch.exp,
-    "identity": lambda x: x,
-}
+def af(x: torch.Tensor, name: str, policy: ExecutionPolicy, axis: int = -1
+       ) -> torch.Tensor:
+    """Activation through DA-VINCI when the policy enables CORDIC AFs.
 
-
-def af(x: torch.Tensor, name: str, policy: ExecutionPolicy) -> torch.Tensor:
-    """Activation ``name``: exact float under ``policy.af=None``."""
-    if policy.af is not None:
-        raise NotImplementedError(f"CORDIC activations (policy.af="
-                                  f"{policy.af}) are ported with "
-                                  f"{_CORDIC_AF_ITEM}")
-    if name not in _EXACT_AFS:
-        raise ValueError(f"unsupported AF {name!r}; choose from "
-                         f"{sorted(_EXACT_AFS)}")
-    return _EXACT_AFS[name](x).to(x.dtype)
+    The CORDIC path computes in float32 (dequantized fixed point); the
+    result is cast back so residual-stream dtypes are stable under any
+    policy."""
+    return activate(x, name, policy.af, axis=axis).to(x.dtype)
 
 
 def softmax(x: torch.Tensor, policy: ExecutionPolicy, axis: int = -1
             ) -> torch.Tensor:
     if policy.softmax_cordic and policy.af is not None:
-        raise NotImplementedError(f"softmax_cordic=True is ported with "
-                                  f"{_CORDIC_AF_ITEM} and the cordic_softmax "
-                                  f"kernel (ROADMAP queue 2, item 3)")
+        return activate(x, "softmax", policy.af, axis=axis).to(x.dtype)
     return torch.softmax(x, dim=axis)
 
 

@@ -7,7 +7,10 @@ installed:
 
 Without a CUDA device every test skips (the ``cuda`` fixture decides at
 run time).  On the card each kernel must equal its plain version bit for
-bit, and a CUDA tensor must never take the plain version.
+bit, and a CUDA tensor must never take the plain version.  The
+``CORDIC_EXEC`` modules (``quantized_dense`` W8A8, ``activate``) must give
+the card the CPU's bits: their float ops are the reference's, one rounded
+operation at a time (``core/libm.py``).
 """
 import dataclasses
 
@@ -15,11 +18,17 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import ExecutionPolicy, get_arch
+from repro_torch.configs import CORDIC_EXEC, ExecutionPolicy, get_arch
+from repro_torch.core import activations as acts
 from repro_torch.core import fixed_point as fxp
-from repro_torch.kernels import common
+from repro_torch.core import quantization as quant
+from repro_torch.kernels import common, cordic_act, cordic_softmax
+from repro_torch.kernels.cordic_act.ops import cordic_act_raw
+from repro_torch.kernels.cordic_act.ref import cordic_act_raw_ref
 from repro_torch.kernels.cordic_mac import ops
 from repro_torch.kernels.cordic_mac.ref import cordic_matmul_raw_ref
+from repro_torch.kernels.cordic_softmax.ops import cordic_softmax_raw
+from repro_torch.kernels.cordic_softmax.ref import cordic_softmax_raw_ref
 from repro_torch.models.model_zoo import build_model
 from repro_torch.models.spec import to_device
 from repro_torch.runtime.serve_loop import Request, ServeConfig, ServeEngine
@@ -119,3 +128,129 @@ def test_engine_matches_single_stream_on_card(cuda):
                                                         device=cuda)})
                 seq.append(int(lg.reshape(-1).argmax()))
         assert r.output.tolist() == seq, r.rid
+
+
+# ---------------------------------------------------------------------------
+# DA-VINCI kernels: cordic_act and cordic_softmax
+# ---------------------------------------------------------------------------
+
+DAVINCI_FMTS = [fxp.FXP4, fxp.FXP8, fxp.FXP16]
+
+
+def _ends(gen, shape, fmt, dev):
+    """Uniform raw words over the format, both saturated ends and zero
+    planted at the front."""
+    x = _raw(gen, shape, fmt, dev)
+    flat = x.view(-1)
+    flat[:3] = torch.tensor([fmt.raw_min, fmt.raw_max, 0], dtype=torch.int32)
+    return x
+
+
+@pytest.mark.parametrize("af", ["tanh", "sigmoid", "exp"])
+@pytest.mark.parametrize("fmt", DAVINCI_FMTS)
+@pytest.mark.parametrize("shape", [(7, 13), (4, 13696), (64, 1000)])
+def test_cordic_act_bit_exact(cuda, af, fmt, shape):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(shape[1])
+    x = _ends(gen, shape, fmt, cuda)
+    spec = common.get_kernel("cordic_act")
+    for n_hyp, n_div in ((5, 4), (5, fmt.frac_bits + 4), (12, 12)):
+        common.reset_counts()
+        got = cordic_act_raw(x, af=af, fmt=fmt, n_hyp=n_hyp, n_div=n_div)
+        assert (spec.launches, spec.plain_calls) == (1, 0)
+        want = cordic_act_raw_ref(x, af=af, fmt=fmt, n_hyp=n_hyp,
+                                  n_div=n_div)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("fmt", DAVINCI_FMTS)
+@pytest.mark.parametrize("shape", [(7, 13), (2048, 16), (128, 64),
+                                   (3, 1000), (4, 151552)])
+def test_cordic_softmax_bit_exact(cuda, fmt, shape):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(shape[0])
+    x = _ends(gen, shape, fmt, cuda)
+    x[-1] = fmt.raw_min                 # a constant row
+    if shape[0] > 1:
+        x[0, 1] = fmt.raw_max           # one entry dominates row 0
+    spec = common.get_kernel("cordic_softmax")
+    for n_hyp, n_div in ((5, 4), (5, fmt.frac_bits + 4), (12, 12)):
+        common.reset_counts()
+        got = cordic_softmax_raw(x, fmt=fmt, n_hyp=n_hyp, n_div=n_div)
+        assert (spec.launches, spec.plain_calls) == (1, 0)
+        want = cordic_softmax_raw_ref(x, fmt=fmt, n_hyp=n_hyp, n_div=n_div)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_davinci_frontends_on_card_equal_cpu(cuda):
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.uniform(-6, 6, (5, 7, 33)).astype(np.float32))
+    for af in ("tanh", "sigmoid", "exp"):
+        got = cordic_act(x.to(cuda), af)
+        assert torch.equal(got.cpu(), cordic_act(x, af))
+    got = cordic_softmax(x.to(cuda) * 3)
+    assert torch.equal(got.cpu(), cordic_softmax(x * 3))
+    band = (cordic_softmax(x.to(cuda), n_hyp=12)
+            - torch.softmax(x.to(cuda), -1)).abs().max().item()
+    assert band < 0.02
+
+
+def test_davinci_kernels_refuse_bad_inputs(cuda):
+    x = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
+    for bad in (x.float(), x.t(), x[0]):
+        with pytest.raises(ValueError):
+            cordic_act_raw(bad, af="tanh", fmt=fxp.FXP16)
+        with pytest.raises(ValueError):
+            cordic_softmax_raw(bad, fmt=fxp.FXP16)
+    with pytest.raises(ValueError, match="12"):
+        cordic_act_raw(x, af="tanh", fmt=fxp.FXP32)
+    with pytest.raises(ValueError, match="n_hyp"):
+        cordic_act_raw(x, af="tanh", fmt=fxp.FXP16, n_hyp=33)
+
+
+# ---------------------------------------------------------------------------
+# CORDIC_EXEC modules and the reduced model on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(4, 4096, 256), (64, 256, 136),
+                                   (5, 13696, 64)])
+def test_quantized_dense_w8a8_card_equals_cpu(cuda, dtype, m, k, n):
+    gen = torch.Generator().manual_seed(m + k)
+    x = torch.randn((m, k), generator=gen).to(dtype)
+    w = (torch.randn((k, n), generator=gen) / k ** 0.5).to(dtype)
+    pol = quant.QuantPolicy()
+    got = quant.quantized_dense(x.to(cuda), w.to(cuda), pol)
+    assert torch.equal(got.cpu(), quant.quantized_dense(x, w, pol))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_activate_card_equals_cpu(cuda, dtype):
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(np.concatenate([
+        rng.uniform(-8, 8, 4000), rng.normal(size=96) * 40]).astype(
+            np.float32)).reshape(-1, 64).to(dtype)
+    for bits in (8, 16):
+        pol = acts.CordicPolicy(bits=bits)
+        for name in acts.SUPPORTED_AFS:
+            got = acts.activate(x.to(cuda), name, pol)
+            assert torch.equal(got.cpu(), acts.activate(x, name, pol)), name
+
+
+def test_cordic_exec_reduced_model_on_card(cuda):
+    """float32 reduced glm4-9b under CORDIC_EXEC, card against CPU: equal
+    logits (the last-bit float differences of attention and rms_norm move
+    no int8 activation word on these inputs; measured on an H100 80GB HBM3
+    at 700 W)."""
+    cfg = dataclasses.replace(
+        get_arch("glm4-9b").reduced().scaled(dtype="float32"),
+        exec_policy=CORDIC_EXEC)
+    params = build_model(cfg, "cpu").init(seed=0)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, 256,
+                                                                (2, 9)))
+    with torch.inference_mode():
+        got = build_model(cfg, cuda).forward(to_device(params, cuda),
+                                             {"tokens": tokens.to(cuda)})
+        want = build_model(cfg, "cpu").forward(params, {"tokens": tokens})
+    assert got.shape == (2, 9, 256) and torch.isfinite(got).all()
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)

@@ -60,3 +60,20 @@ assert not loaded, loaded
                          capture_output=True, text=True, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) > 20
+
+
+def test_core_and_configs_load_no_kernel_module():
+    """The layers point down: ``core`` and ``configs`` import nothing of
+    ``repro_torch.kernels`` (the kernels build on core, not the reverse)."""
+    code = """
+import sys
+import repro_torch.configs, repro_torch.core.activations
+import repro_torch.core.quantization
+loaded = sorted(n for n in sys.modules
+                if n.startswith(("repro_torch.kernels", "repro_torch.models")))
+assert not loaded, loaded
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr

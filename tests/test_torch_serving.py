@@ -3,9 +3,13 @@
 Same converted parameters in both packages (reduced glm4-9b, float32 so
 near-ties cannot split the two argmaxes), mixed prompt lengths and more
 requests than slots, so slots retire and refill: equal greedy outputs per
-request.  The port's engine must also equal the port's own single-stream
-prefill + decode, under both matmul modes, and its per-bucket prefill
-counts are the torch form of the reference's trace-count rule.
+request.  The same holds under the paper's ``CORDIC_EXEC`` policy, with
+and without the CORDIC softmax.  The port's engine must also equal the
+port's own single-stream prefill + decode under the float and
+``cordic_kernel`` matmuls, and its per-bucket prefill counts are the torch
+form of the reference's trace-count rule.  (Not under ``CORDIC_EXEC``: its
+activation scale spans the whole batch, idle slots and pads included, so
+a request's tokens depend on its batch-mates, in the reference too.)
 """
 import dataclasses
 
@@ -15,11 +19,12 @@ import pytest
 import torch
 
 from repro.configs import get_arch as j_get_arch
+from repro.configs.base import CORDIC_EXEC as J_CORDIC_EXEC
 from repro.models.model_zoo import build_model as j_build_model
 from repro.runtime.serve_loop import Request as JRequest
 from repro.runtime.serve_loop import ServeConfig as JServeConfig
 from repro.runtime.serve_loop import ServeEngine as JServeEngine
-from repro_torch.configs import ExecutionPolicy, get_arch
+from repro_torch.configs import CORDIC_EXEC, ExecutionPolicy, get_arch
 from repro_torch.convert import params_from_numpy
 from repro_torch.models.model_zoo import build_model
 from repro_torch.runtime.serve_loop import (Request, ServeConfig, ServeEngine,
@@ -62,8 +67,12 @@ def _single_stream(model, params, prompt, max_new):
 
 
 def test_engine_matches_reference_engine(pair):
-    jm, jp, cfg, tree = pair
-    prompts = _prompts()
+    _check_engines(*pair, _prompts())
+
+
+def _check_engines(jm, jp, cfg, tree, prompts):
+    """Both engines over the same traffic: equal outputs per request, finish
+    order, decode steps and prefill buckets."""
     jeng = JServeEngine(jm, jp, JServeConfig(max_batch=4, max_seq=MAX_SEQ))
     want = {r.rid: r.output.tolist() for r in jeng.serve(
         [JRequest(i, p, max_new_tokens=n)
@@ -83,6 +92,21 @@ def test_engine_matches_reference_engine(pair):
         {e[3] for e in eng.events if e[0] == "admit"})
     assert eng.metrics["decode_steps"] == jeng.metrics["decode_steps"]
     assert eng.metrics["prefill_tokens"] == sum(LENS)
+
+
+@pytest.mark.parametrize("softmax_cordic", [False, True])
+def test_engine_matches_reference_engine_under_cordic_exec(pair,
+                                                           softmax_cordic):
+    """W8A8 matmuls and DA-VINCI AFs (and the CORDIC softmax): the port's
+    engine equals the reference's jitted engine request for request."""
+    _, jp, cfg, tree = pair
+    jcfg = dataclasses.replace(
+        j_get_arch("glm4-9b").reduced().scaled(dtype="float32"),
+        exec_policy=dataclasses.replace(J_CORDIC_EXEC,
+                                        softmax_cordic=softmax_cordic))
+    cfg = dataclasses.replace(cfg, exec_policy=dataclasses.replace(
+        CORDIC_EXEC, softmax_cordic=softmax_cordic))
+    _check_engines(j_build_model(jcfg), jp, cfg, tree, _prompts())
 
 
 @pytest.mark.parametrize("matmul", ["bf16", "cordic_kernel"])
@@ -154,10 +178,11 @@ def test_refuses_unported_knobs_and_bad_requests():
             eng.serve(bad)
 
 
-def test_launcher_serves_on_the_cpu(capsys):
+@pytest.mark.parametrize("policy", ["bf16", "cordic_kernel", "cordic_exec"])
+def test_launcher_serves_on_the_cpu(capsys, policy):
     from repro_torch.launch.serve import main
     assert main(["--arch", "glm4-9b", "--reduced", "--device", "cpu",
                  "--requests", "3", "--max-new", "3", "--max-seq", "64",
-                 "--matmul", "cordic_kernel"]) == 0
+                 "--policy", policy]) == 0
     out = capsys.readouterr().out
     assert out.count("req ") == 3 and "on cpu" in out
