@@ -52,8 +52,42 @@ Phases, in order; any failure exits non-zero and prints no result:
                recurrences, as in the reference, so phase 7 launches
                neither kernel.)
 
-The last three lines are nvidia-smi's name and power limit, one JSON
-object with a record per kernel, and ``{"ok": true, "device": {...}}``.
+9. wkv       — holds ``wkv`` and ``wkv_q8`` against their plain versions
+               on the card: the reference's kernel test shapes, full-width
+               heads (d = 64), odd T (1, 7, 65), float32 and bfloat16
+               inputs; q8 from a random, a zero and a saturated (+-127)
+               state.  y within atol = rtol = 5e-5 (float32; from the
+               saturated state, within the per-output bound of
+               ``y_close``), the int8 state's words and scales equal.
+10. rwkv6 reference — a reduced rwkv6-3b on the card against the CPU
+               under float32 matmuls (within a tolerance, equal greedy
+               tokens), and under ``cordic_kernel`` against its own plain
+               version on the card (equal logits).
+11. rwkv6 serve — full-width rwkv6-3b (32 layers, d_model 2560, 40 heads
+               of 64, d_ff 8960, vocab 65536, bf16, 3.07 B parameters,
+               random weights from seed 0) under ``cordic_kernel`` through
+               the ``ServeEngine``, twice: with the float32 and with the
+               int8 recurrent state (``CacheSpec(dtype="int8")``).  Each:
+               257 ``cordic_mac`` launches per forward call and no other
+               kernel or plain-version call, one request equal to
+               single-stream decode, times, peak memory, a profiled
+               decode step; then the reduced model's engine equal to
+               single-stream decode.  A second int8 serve records, for
+               layers 0 and 31, the prefill's masked r, k, v, w, u and
+               recurrence output, and one decode step's inputs with the
+               int8 state in and out.
+12. wkv path  — ``repro_torch.kernels.wkv`` on the recorded prefill and
+               ``wkv_q8`` on the recorded decode step, every count set to
+               0 before and read after; each launch against its plain
+               version, ``wkv_q8``'s new state against the one the served
+               model wrote (equal), y against the model's own recurrence
+               (the per-output bound of ``y_close``);
+               kernel, plain version and bound timed on them, and (context
+               only) one layer of a 4096-token prompt.
+
+Each phase prints its seconds.  The last three lines are nvidia-smi's
+name and power limit, one JSON object with a record per kernel, and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -73,13 +107,13 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.configs import (CORDIC_EXEC, ExecutionPolicy,  # noqa: E402
-                                 get_arch)
+from repro_torch.configs import (CORDIC_EXEC, CacheSpec,  # noqa: E402
+                                 ExecutionPolicy, get_arch)
 from repro_torch.core import activations as acts  # noqa: E402
 from repro_torch.core import fixed_point as fxp  # noqa: E402
 from repro_torch.core import quantization as quant  # noqa: E402
 from repro_torch.kernels import (common, cordic_act,  # noqa: E402
-                                 cordic_softmax)
+                                 cordic_softmax, wkv, wkv_q8)
 from repro_torch.kernels.cordic_act import kernel as act_kernel  # noqa: E402
 from repro_torch.kernels.cordic_act.ref import (  # noqa: E402
     EXP_ARG_CLAMP, GUARD_BITS, cordic_act_raw_ref, exp_neg_raw_ref)
@@ -88,7 +122,12 @@ from repro_torch.kernels.cordic_mac.ref import cordic_matmul_raw_ref  # noqa: E4
 from repro_torch.kernels.cordic_softmax import kernel as sm_kernel  # noqa: E402
 from repro_torch.kernels.cordic_softmax.ref import (  # noqa: E402
     cordic_softmax_raw_ref)
+from repro_torch.kernels.wkv import kernel as wkv_kernel  # noqa: E402
+from repro_torch.kernels.wkv.ref import (wkv_q8_ref,  # noqa: E402
+                                         wkv_recurrence_ref)
 from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.models import ssm  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
 from repro_torch.models.spec import to_device  # noqa: E402
 from repro_torch.runtime.serve_loop import (Request, ServeConfig,  # noqa: E402
@@ -394,6 +433,18 @@ def phase_davinci(dev) -> dict:
     return errs
 
 
+@contextlib.contextmanager
+def kernel_takes_plain(name: str):
+    """CUDA tensors take the plain version of kernel ``name`` meanwhile."""
+    spec = common.get_kernel(name)
+    kernel = spec.kernel
+    spec.kernel = spec.plain
+    try:
+        yield
+    finally:
+        spec.kernel = kernel
+
+
 def phase_reference(dev) -> None:
     """Reduced glm4-9b (float32) on the card against two references.
 
@@ -423,17 +474,11 @@ def phase_reference(dev) -> None:
     if not err <= FLOAT_TOL:
         raise AssertionError("float model on the card disagrees with the CPU")
 
-    spec = common.get_kernel("cordic_mac")
-    kernel = spec.kernel
-    spec.kernel = spec.plain            # CUDA tensors take the plain version
-    try:
-        with torch.inference_mode():
-            plain = build_model(dataclasses.replace(
-                base, exec_policy=ExecutionPolicy(matmul="cordic_kernel")),
-                dev).forward(to_device(params, dev),
-                             {"tokens": tokens.to(dev)}).cpu()
-    finally:
-        spec.kernel = kernel
+    with kernel_takes_plain("cordic_mac"), torch.inference_mode():
+        plain = build_model(dataclasses.replace(
+            base, exec_policy=ExecutionPolicy(matmul="cordic_kernel")),
+            dev).forward(to_device(params, dev),
+                         {"tokens": tokens.to(dev)}).cpu()
     got = logits["cordic_kernel", "card"]
     cross = (got - logits["cordic_kernel", "cpu"]).abs().max().item()
     log(f"[reference] reduced glm4-9b, cordic_kernel: kernel vs plain version "
@@ -580,7 +625,8 @@ def profile_step(model, params, engine) -> None:
         log("[profile] the trace holds no device time: not measured")
         return
     log(f"[profile] one decode step (M=4): wall {wall_ms:.1f} ms, device "
-        f"busy {busy:.1f} ms, idle share {1 - busy / wall_ms:.3f}")
+        f"busy {busy:.1f} ms, idle share {1 - busy / wall_ms:.3f}, "
+        f"{sum(n for _, _, n in kernels)} device kernels")
     for key, t, n in sorted(kernels, key=lambda k: -k[1])[:8]:
         log(f"  {t:8.2f} ms {t / busy:6.1%} x{n:4d}  {key[:90]}")
 
@@ -841,6 +887,536 @@ def phase_davinci_path(dev, captured: dict, errs: dict) -> dict:
     return records
 
 
+# ---------------------------------------------------------------------------
+# rwkv6-3b and the wkv kernels
+# ---------------------------------------------------------------------------
+
+# rwkv6-3b at full width: layers, d_model, heads, head_dim, d_ff, vocab,
+# dtype.  Every projection runs through cordic_mac: time-mix wr, wk, wv,
+# wg, wo and channel-mix wk, wv, wr in each of 32 layers, and lm_head.
+RWKV_FULL_WIDTH = (32, 2560, 40, 64, 8960, 65536, "bfloat16")
+RWKV_LAUNCHES_PER_FORWARD = 8 * 32 + 1                     # 257
+# wkv's y against the plain version: the reference kernel tests' band,
+# atol = rtol = 5e-5, on float32 outputs; a bfloat16 output may also round
+# the other way (one bfloat16 step, 2**-7 of the value).
+WKV_TOL = 5e-5
+# Where y cancels (a saturated state; the served activations, whose |y|
+# reaches 6e5) the bar is per output instead.  Kernel and plain version
+# share the rounded terms of y_j = sum_i (r_i u_i)(k_i v_j) + r_i S_ij and
+# the state (equal word for word); each sums the 2 dk products in its own
+# order, so the two lie within 2 gamma_{2dk} M_j <= 2 dk eps M_j of one
+# another, M_j = sum_i |r_i u_i k_i v_j| + |r_i S_ij| (eps = 2**-23).  The
+# model's own recurrence, r . fma(u, kv, S), sums dk + 1 rounded terms:
+# it and the kernel lie within (3 dk + 2) eps/2 M_j, inside the same bar.
+# M is the plain version run on |r|, |k|, |v|, w, |u| (and the |words| of
+# an int8 state): w > 0, so its state bounds |S| element by element.
+# 4 eps more cover M's own rounding.
+F32_EPS = 2.0 ** -23
+# (B, T, H, d): the reference's kernel test shapes, full-width heads, odd T
+WKV_SHAPES = ((4, 64, 16, 16), (2, 128, 32, 32), (8, 32, 8, 8),
+              (4, 16, 40, 64), (2, 1, 40, 64), (2, 7, 8, 64), (1, 65, 4, 32))
+F32_OPS_PER_S = 67e12     # float32 outside the tensor cores, FMA = 2
+# float32 operations of one wkv step: per state element k*v (1), the
+# state's multiply-add (2) and r_i S_ij into y (2); the bonus term
+# sum_i (r_i u_i)(k_i v_j) = v_j (sum_i r_i u_i k_i) is one dk-long dot per
+# row (r*u, then a multiply-add: 3 per i) and a multiply-add per column
+WKV_OPS_PER_ELEMENT = 5
+
+
+def wkv_magnitude(fn, r, k, v, w, u, *state) -> torch.Tensor:
+    """M of ``y_close`` for the inputs of ``fn`` (a plain version, or a
+    public frontend under ``kernel_takes_plain``): float32, shaped as y."""
+    args = (r.float().abs(), k.abs(), v.abs(), w, u.abs())
+    if state:
+        args += (state[0].abs(), state[1])
+    out = fn(*args)
+    return out[0] if state else out
+
+
+def y_close(got, want, what: str, errs: list, mag=None):
+    """Hold a wkv output to the plain version's: within atol = rtol =
+    WKV_TOL or, given ``mag`` (M, see F32_EPS), within (2 dk + 4) eps M
+    per output.  ``errs`` collects the largest |difference| of float32
+    outputs (a bfloat16 output's is one bfloat16 step wherever the two
+    round apart); returns the largest |difference| / (eps M) of a float32
+    output given ``mag``, else None."""
+    torch.cuda.synchronize()
+    g, w_ = got.float(), want.float()
+    if g.shape != w_.shape or not torch.isfinite(g).all():
+        raise AssertionError(f"wkv {what}: shape {tuple(g.shape)} or values "
+                             f"not finite")
+    diff = (g - w_).abs()
+    f32 = got.dtype == torch.float32
+    if f32 and diff.numel():
+        errs.append(diff.max().item())
+    rtol = WKV_TOL if f32 else 2 ** -7
+    if mag is None:
+        bar = WKV_TOL + rtol * w_.abs()
+        txt = f"atol {WKV_TOL:.1e} + rtol {rtol:.1e}"
+    else:
+        ulps = 2 * got.shape[-1] + 4                     # dk == dv
+        bar = ulps * F32_EPS * mag
+        txt = f"{ulps} eps M"
+        if not f32:
+            bar = bar + rtol * w_.abs()
+            txt += f" + rtol {rtol:.1e}"
+    bad = int((diff > bar).sum())
+    if bad:
+        raise AssertionError(f"wkv {what}: {bad} of {g.numel()} outputs "
+                             f"beyond {txt}")
+    if mag is None or not f32 or not diff.numel():
+        return None
+    return (diff / (F32_EPS * mag)).nan_to_num(0.0).max().item()
+
+
+def check_state(got, want, what: str) -> None:
+    """The int8 state's words and scales: equal, word for word."""
+    torch.cuda.synchronize()
+    for name, a, b in (("words", got[0], want[0]), ("scales", got[1],
+                                                   want[1])):
+        if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(a, b):
+            bad = int((a != b).sum()) if a.shape == b.shape else "all"
+            raise AssertionError(f"wkv_q8 {what}: {bad} state {name} differ")
+
+
+def wkv_inputs(gen, b, t, h, d, dtype, dev):
+    """Raw (B*H, T, d) r, k, v, w in ``dtype`` (w in [0.3, 1)), u float32."""
+    shape = (b * h, t, d)
+    r, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+               for _ in range(3))
+    w = (torch.rand(shape, generator=gen, device=dev) * 0.7 + 0.3).to(dtype)
+    return r, k, v, w, torch.randn((b * h, d), generator=gen, device=dev)
+
+
+def phase_wkv(dev) -> dict:
+    """wkv and wkv_q8 against their plain versions on the card."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    errs = {"wkv": [], "wkv_q8": []}
+    log("[wkv] the kernels against their plain versions: y within atol = "
+        f"rtol = {WKV_TOL} (float32; bfloat16 output rtol 2**-7; from a "
+        f"saturated state (2 dk + 4) eps M per output), the int8 state's "
+        "words and scales equal")
+    readings = []
+    for b, t, h, d in WKV_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            raw = wkv_inputs(gen, b, t, h, d, dtype, dev)
+            what = f"(B, T, H, d) = {(b, t, h, d)} {str(dtype)[6:]}"
+            y_close(wkv_kernel.wkv_recurrence_cuda(*raw),
+                    wkv_recurrence_ref(*raw), what, errs["wkv"])
+            bh = b * h
+            states = {
+                "random state": (
+                    torch.randint(-127, 128, (bh, d, d), generator=gen,
+                                  device=dev, dtype=torch.int8),
+                    torch.rand((bh, d), generator=gen, device=dev) * 0.1),
+                "zero state": (torch.zeros((bh, d, d), dtype=torch.int8,
+                                           device=dev),
+                               torch.zeros((bh, d), device=dev)),
+                "saturated rows": (
+                    torch.where(torch.rand((bh, d, d), generator=gen,
+                                           device=dev) < 0.5, 127, -127
+                                ).to(torch.int8),
+                    torch.full((bh, d), 3.0, device=dev)),
+            }
+            for sname, (s0, sc) in states.items():
+                got = wkv_kernel.wkv_recurrence_q8_cuda(*raw, s0, sc)
+                want = wkv_q8_ref(*raw, s0, sc)
+                # a saturated state (|S| ~ 381) cancels in y: there the
+                # bar follows each output's terms
+                mag = (wkv_magnitude(wkv_q8_ref, *raw, s0, sc)
+                       if sname == "saturated rows" else None)
+                reading = y_close(got[0], want[0], f"q8 {what} {sname}",
+                                  errs["wkv_q8"], mag)
+                if reading is not None:
+                    readings.append(reading)
+                check_state(got[1:], want[1:], f"{what} {sname}")
+                if sname == "saturated rows" and int(
+                        got[1].abs().max()) != 127:
+                    raise AssertionError("no requantized word at +-127")
+        log(f"  within the bars: {(b, t, h, d)}, float32 and bfloat16; q8 "
+            f"from a random, a zero and a saturated (+-127) state")
+    log(f"[wkv] from the saturated state, largest |y - plain| / (eps M): "
+        f"{max(readings):.3f}")
+    return errs
+
+
+def rwkv_params(model, seed: int) -> dict:
+    """Random parameters with the zero- and one-initialised mixer leaves
+    (token-shift factors, decay base, bonus, group-norm gain) redrawn, so
+    every path of the mixers counts."""
+    params = model.init(seed=seed)
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(seed + 1)
+    tm, cm = params["blocks"]["tm"], params["blocks"]["cm"]
+    for leaf, lo, hi in ((tm["mu"], 0.0, 1.0), (tm["w0"], -1.0, 1.0),
+                         (tm["bonus"], -0.5, 0.5), (tm["ln_w"], 0.5, 1.5),
+                         (cm["mu_k"], 0.0, 1.0), (cm["mu_r"], 0.0, 1.0)):
+        leaf.copy_(torch.rand(leaf.shape, generator=gen, device=model.device)
+                   * (hi - lo) + lo)
+    return params
+
+
+def phase_rwkv_reference(dev) -> None:
+    """A reduced rwkv6 (float32) on the card against two references.
+
+    1. ``matmul="bf16"`` (float32 matmuls), card vs CPU: logits within
+       FLOAT_TOL, equal greedy tokens.
+    2. ``matmul="cordic_kernel"``, kernel vs plain version on the card:
+       equal logits (card vs CPU only recorded, ROADMAP queue 3).
+    """
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, 256,
+                                                                (2, 12)))
+    base = get_arch("rwkv6-3b").reduced().scaled(dtype="float32")
+    params = rwkv_params(build_model(base, "cpu"), seed=0)
+    logits = {}
+    for matmul in ("bf16", "cordic_kernel"):
+        cfg = dataclasses.replace(base,
+                                  exec_policy=ExecutionPolicy(matmul=matmul))
+        with torch.inference_mode():
+            logits[matmul, "cpu"] = build_model(cfg, "cpu").forward(
+                params, {"tokens": tokens})
+            logits[matmul, "card"] = build_model(cfg, dev).forward(
+                to_device(params, dev), {"tokens": tokens.to(dev)}).cpu()
+            if matmul == "cordic_kernel":
+                with kernel_takes_plain("cordic_mac"):
+                    logits[matmul, "plain"] = build_model(cfg, dev).forward(
+                        to_device(params, dev),
+                        {"tokens": tokens.to(dev)}).cpu()
+    got, want = logits["bf16", "card"], logits["bf16", "cpu"]
+    err = (got - want).abs().max().item()
+    same = torch.equal(got.argmax(-1), want.argmax(-1))
+    log(f"[rwkv6 reference] reduced rwkv6-3b, float32 matmuls: card vs CPU "
+        f"max abs err {err:.3e} (tolerance {FLOAT_TOL}), equal greedy "
+        f"tokens: {same}")
+    if not (err <= FLOAT_TOL and same):
+        raise AssertionError("float rwkv6 on the card disagrees with the CPU")
+    got = logits["cordic_kernel", "card"]
+    cross = (got - logits["cordic_kernel", "cpu"]).abs().max().item()
+    equal = torch.equal(got, logits["cordic_kernel", "plain"])
+    log(f"[rwkv6 reference] reduced rwkv6-3b, cordic_kernel: kernel vs plain "
+        f"version on the card equal: {equal}; (card vs CPU max abs err "
+        f"{cross:.3e}, recorded only)")
+    if not (torch.isfinite(got).all() and got.shape == (2, 12, 256)
+            and equal):
+        raise AssertionError("cordic rwkv6: kernel and plain version disagree")
+
+
+@contextlib.contextmanager
+def record_wkv(store: dict, n_layers: int, keep: tuple):
+    """Record, for the layers in ``keep``: the first prefill's and the first
+    decode step's recurrence inputs and outputs (``ssm.wkv_steps``, as
+    masked), and that decode step's int8 state in and out."""
+    steps, decode = ssm.wkv_steps, T.decode_step
+    calls = []
+
+    def rec_steps(r, k, v, w, u, S):
+        out, s_new = steps(r, k, v, w, u, S)
+        layer = len(calls) % n_layers
+        kind = "prefill" if r.shape[1] > 1 else "decode"
+        calls.append(kind)
+        if layer in keep and layer not in store[kind]:
+            store[kind][layer] = {
+                "r": r.clone(), "k": k.clone(), "v": v.clone(),
+                "w": w.clone(), "u": u.clone(), "out": out.clone()}
+        return out, s_new
+
+    def rec_decode(params, state, batch, cfg, pol=None):
+        first = not store["state_in"] and state.wkv_scale is not None
+        if first:
+            store["state_in"] = {i: (state.wkv[i].clone(),
+                                     state.wkv_scale[i].clone())
+                                 for i in keep}
+        res = decode(params, state, batch, cfg, pol)
+        if first:
+            store["state_out"] = {i: (state.wkv[i].clone(),
+                                      state.wkv_scale[i].clone())
+                                  for i in keep}
+        return res
+
+    ssm.wkv_steps, T.decode_step = rec_steps, rec_decode
+    try:
+        yield store
+    finally:
+        ssm.wkv_steps, T.decode_step = steps, decode
+
+
+def rwkv_full_width():
+    cfg = dataclasses.replace(get_arch("rwkv6-3b"), exec_policy=ExecutionPolicy(
+        matmul="cordic_kernel"))
+    got = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.head_dim_, cfg.d_ff,
+           cfg.vocab_size, cfg.dtype)
+    if got != RWKV_FULL_WIDTH:
+        raise AssertionError(f"rwkv6-3b is not at full width: {got}")
+    return cfg
+
+
+def phase_rwkv_serve(dev, smi: str) -> dict:
+    """Full-width rwkv6-3b under cordic_kernel, served with the float32
+    and with the int8 recurrent state; the int8 serve records the wkv
+    path's inputs."""
+    cfg = rwkv_full_width()
+    t0 = time.monotonic()
+    model = build_model(cfg, dev)
+    params = rwkv_params(model, seed=0)
+    torch.cuda.synchronize()
+    log(f"[rwkv6 serve] rwkv6-3b full width: {model.n_params() / 1e9:.3f} B "
+        f"params initialised on the card in {time.monotonic() - t0:.1f} s")
+    max_seq = 64
+    out = {"launches": 0, "runs": {}}
+    for state in ("float32", "int8"):
+        cache = CacheSpec(dtype="int8") if state == "int8" else None
+        engine = ServeEngine(model, params, ServeConfig(
+            max_batch=4, max_seq=max_seq, cache=cache))
+        served = engine.model
+        warm, reqs, rng = serve_traffic(cfg.vocab_size)
+        engine.serve(warm)
+        done, run = timed_serve(engine, reqs, dev)
+        launches, plain = run["counts"]["cordic_mac"]
+        forwards = run["prefills"] + run["decode_steps"]
+        others = {n: c for n, c in run["counts"].items()
+                  if n != "cordic_mac" and c != (0, 0)}
+        log(f"[rwkv6 serve] {state} state: {len(done)} requests, "
+            f"{run['prefills']} prefill(s), {run['decode_steps']} decode "
+            f"steps: cordic_mac launches {launches} (= "
+            f"{launches / forwards:.1f} per forward call), plain-version "
+            f"calls {plain}, other kernels {others or 'none'}")
+        if (launches != RWKV_LAUNCHES_PER_FORWARD * forwards or plain != 0
+                or others):
+            raise AssertionError(f"expected {RWKV_LAUNCHES_PER_FORWARD} "
+                                 f"cordic_mac launches per forward call and "
+                                 f"no other kernel or plain call")
+        out["launches"] += launches
+        out["runs"][state] = run
+        log_times(f"rwkv6 serve, {state} state", run, smi)
+        profile_step(served, params, engine)
+        r0 = min(done, key=lambda r: r.rid)
+        ref = single_stream(served, params, r0.prompt, r0.max_new_tokens,
+                            max_seq)
+        log(f"[rwkv6 serve] {state} state, request {r0.rid}: engine "
+            f"{r0.output.tolist()} single-stream {ref}")
+        if r0.output.tolist() != ref:
+            raise AssertionError("engine output differs from single-stream "
+                                 "decode")
+        if state == "int8":
+            store = {"prefill": {}, "decode": {}, "state_in": {},
+                     "state_out": {}}
+            with record_wkv(store, cfg.n_layers, (0, cfg.n_layers - 1)):
+                again = ServeEngine(model, params, ServeConfig(
+                    max_batch=4, max_seq=max_seq, cache=cache)).serve(
+                    [Request(r.rid, r.prompt, max_new_tokens=2)
+                     for r in reqs])
+            want = {r.rid: r.output.tolist()[:2] for r in done}
+            if {r.rid: r.output.tolist() for r in again} != want:
+                raise AssertionError("the recording serve gave other tokens")
+            out["recorded"] = store
+            log(f"[rwkv6 serve] int8 state: recorded layers 0 and "
+                f"{cfg.n_layers - 1}: prefill r/k/v/w "
+                f"{tuple(store['prefill'][0]['r'].shape)}, decode "
+                f"{tuple(store['decode'][0]['r'].shape)}, int8 state "
+                f"{tuple(store['state_in'][0][0].shape)}")
+        del engine
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    # the full-width greedy output can saturate to one token repeated (as
+    # glm4-9b's does); so the engine is also held to single-stream decode
+    # on the reduced model, whose tokens vary: 6 requests through 4 slots
+    small = dataclasses.replace(get_arch("rwkv6-3b").reduced(),
+                                exec_policy=ExecutionPolicy(
+                                    matmul="cordic_kernel"))
+    small_model = build_model(small, dev)
+    small_params = rwkv_params(small_model, seed=0)
+    for state in ("float32", "int8"):
+        cache = CacheSpec(dtype="int8") if state == "int8" else None
+        engine = ServeEngine(small_model, small_params,
+                             ServeConfig(max_batch=4, max_seq=max_seq,
+                                         cache=cache))
+        reqs = [Request(i, rng.integers(0, small.vocab_size, n).astype(
+            np.int32), max_new_tokens=k) for i, (n, k) in enumerate(
+            zip((5, 11, 16, 3, 24, 8), (4, 9, 2, 12, 1, 6)))]
+        done = engine.serve(reqs)
+        bad = [r.rid for r in done if r.output.tolist() != single_stream(
+            engine.model, small_params, r.prompt, r.max_new_tokens,
+            max_seq)]
+        log(f"[rwkv6 serve] reduced rwkv6-3b (bf16, cordic_kernel, {state} "
+            f"state): {len(done)} requests through 4 slots, "
+            f"{len({t for r in done for t in r.output})} distinct tokens, "
+            f"equal to single-stream decode: {not bad}")
+        if bad or len(done) != len(reqs):
+            raise AssertionError(f"engine differs from single-stream for "
+                                 f"{bad}")
+    return out
+
+
+def wkv_bound(r, k, v, w, u, out, extra: int = 0) -> tuple:
+    """(bytes ms, operations ms) of one raw wkv call on these tensors:
+    each input read once and each output written once (``extra`` bytes of
+    int8 state and scales in and out), against the float32 operations of
+    WKV_OPS_PER_ELEMENT."""
+    moved = sum(t.numel() * t.element_size() for t in (r, k, v, w, u, out))
+    bh, t, dk = r.shape
+    dv = v.shape[-1]
+    ops = bh * t * (WKV_OPS_PER_ELEMENT * dk * dv + 3 * dk + 2 * dv)
+    return ((moved + extra) / HBM_BYTES_PER_S * 1e3,
+            ops / F32_OPS_PER_S * 1e3)
+
+
+def flat(x: torch.Tensor) -> torch.Tensor:
+    """(B, T, H, d) -> the raw (B*H, T, d) layout, contiguous."""
+    b, t, h, d = x.shape
+    return x.transpose(1, 2).reshape(b * h, t, d).contiguous()
+
+
+def phase_wkv_path(dev, rec: dict, errs: dict) -> dict:
+    """wkv and wkv_q8 through their public entry points on the int8 serve's
+    recordings; each launch against its plain version, the new int8 state
+    against the one the served model wrote, y against the model's own
+    recurrence; then kernel, plain version and bound timed on them."""
+    layers = sorted(rec["prefill"])
+    common.reset_counts()
+    calls = []
+    for i in layers:
+        p, d = rec["prefill"][i], rec["decode"][i]
+        q_in, s_in = rec["state_in"][i]
+        calls.append(("wkv", i, wkv(p["r"], p["k"], p["v"], p["w"], p["u"])))
+        calls.append(("wkv_q8", i, wkv_q8(d["r"], d["k"], d["v"], d["w"],
+                                          d["u"], q_in, s_in[..., 0])))
+    torch.cuda.synchronize()
+    counts = {n: (common.get_kernel(n).launches,
+                  common.get_kernel(n).plain_calls)
+              for n in ("wkv", "wkv_q8")}
+    log(f"[wkv path] wkv on the prefill's (B, T, H, d) = "
+        f"{tuple(rec['prefill'][layers[0]]['r'].shape)} and wkv_q8 on the "
+        f"decode step's {tuple(rec['decode'][layers[0]]['r'].shape)}, "
+        f"layers {layers}: (launches, plain calls) {counts}")
+    for n in counts:
+        if counts[n] != (len(layers), 0):
+            raise AssertionError(f"{n}: expected {len(layers)} launches and "
+                                 f"no plain call, got {counts[n]}")
+    # M of each call's inputs (y_close), from the plain version
+    mags = {}
+    with kernel_takes_plain("wkv"), kernel_takes_plain("wkv_q8"):
+        for i in layers:
+            p, d = rec["prefill"][i], rec["decode"][i]
+            q_in, s_in = rec["state_in"][i]
+            mags["wkv", i] = wkv_magnitude(wkv, p["r"], p["k"], p["v"],
+                                           p["w"], p["u"])
+            mags["wkv_q8", i] = wkv_magnitude(wkv_q8, d["r"], d["k"], d["v"],
+                                              d["w"], d["u"], q_in,
+                                              s_in[..., 0])
+    readings = {"wkv": [], "wkv_q8": [], "model": []}
+    for name, i, got in calls:
+        fn = wkv if name == "wkv" else wkv_q8
+        src = rec["prefill" if name == "wkv" else "decode"][i]
+        args = (src["r"], src["k"], src["v"], src["w"], src["u"])
+        if name == "wkv_q8":
+            args += (rec["state_in"][i][0], rec["state_in"][i][1][..., 0])
+        mag = mags[name, i]
+        with kernel_takes_plain(name):
+            want = fn(*args)
+        if name == "wkv_q8":
+            check_state(got[1:], want[1:], f"served decode, layer {i}")
+            # the model's update is libm.fma, which rounds twice where
+            # float64 lands on a float32 midpoint (~2**-29 of updates): a
+            # tie that moved a word would show here as a mismatch
+            q_out, s_out = rec["state_out"][i]
+            check_state(got[1:], (q_out, s_out[..., 0]),
+                        f"served decode, layer {i}, against the state the "
+                        f"model wrote")
+            got, want = got[0], want[0]
+        y_close(got, want, f"served {name}, layer {i}", errs[name], mag)
+        y_close(got, src["out"], f"served {name}, layer {i}, against the "
+                f"model's recurrence", [], mag)
+        # the same inputs with float32 r, so y comes out in float32
+        args32 = (src["r"].float(), *args[1:])
+        with kernel_takes_plain(name):
+            want32 = fn(*args32)
+        got32 = fn(*args32)
+        if name == "wkv_q8":
+            got32, want32 = got32[0], want32[0]
+        readings[name].append(y_close(got32, want32, f"served {name}, layer "
+                                      f"{i}, float32 y", errs[name], mag))
+        readings["model"].append(y_close(got32, src["out"], f"served {name}, "
+                                         f"layer {i}, float32 y, against the "
+                                         f"model's recurrence", [], mag))
+    ulps = 2 * rec["prefill"][layers[0]]["r"].shape[-1] + 4
+    log(f"[wkv path] every launch within the bars of its plain version "
+        f"and of the model's own recurrence (state words and scales equal; "
+        f"y within {ulps} eps M per output, + rtol 2**-7 for the bfloat16 "
+        f"output); wkv_q8's new int8 state equals the served model's.  With "
+        f"float32 r (float32 y), largest |y - plain| / (eps M): wkv "
+        f"{max(readings['wkv']):.3f}, wkv_q8 {max(readings['wkv_q8']):.3f}; "
+        f"against the model's own recurrence {max(readings['model']):.3f}; "
+        f"largest |y - plain| {max(errs['wkv'] + errs['wkv_q8']):.4g}, "
+        f"max|y| "
+        f"{max(rec['prefill'][i]['out'].abs().max().item() for i in layers):.4g}")
+
+    records = {}
+    for name in ("wkv", "wkv_q8"):
+        tot = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+        shapes = []
+        for i in layers:
+            src = rec["prefill" if name == "wkv" else "decode"][i]
+            b, t, h, dd = src["r"].shape
+            raw = [flat(src[x]) for x in ("r", "k", "v", "w")]
+            raw.append(src["u"][None].expand(b, h, dd).reshape(b * h, dd)
+                       .contiguous())
+            if name == "wkv":
+                args, extra = raw, 0
+                launch = wkv_kernel.wkv_recurrence_cuda
+                plain = wkv_recurrence_ref
+            else:
+                q_in, s_in = rec["state_in"][i]
+                args = raw + [q_in.reshape(b * h, dd, dd),
+                              s_in.reshape(b * h, dd)]
+                extra = 2 * (q_in.numel() + s_in.numel() * 4)
+                launch = wkv_kernel.wkv_recurrence_q8_cuda
+                plain = wkv_q8_ref
+            ms = time_ms(launch, [args], reps=50)
+            dev_ms = device_ms(launch, [args], reps=50,
+                               kernel_name="wkv_kernel")
+            plain_ms = time_ms(plain, [args], reps=3)
+            y = launch(*args)
+            t_b, t_o = wkv_bound(*raw, y[0] if name == "wkv_q8" else y, extra)
+            bnd, by = larger(t_b, t_o)
+            dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f}"
+            log(f"  {name} layer {i} (B, T, H, d) = {(b, t, h, dd)}: kernel "
+                f"{ms:.4f} ms (device only {dev_txt}), plain {plain_ms:.4f} "
+                f"ms, bound {bnd:.6f} ms ({by}), kernel/bound {ms / bnd:.1f}")
+            tot["ms"] += ms
+            tot["plain_ms"] += plain_ms
+            tot["bytes"] += t_b
+            tot["ops"] += t_o
+            shapes.append((b, t, h, dd))
+        bnd, by = larger(tot["bytes"], tot["ops"])
+        records[name] = {"launches": counts[name][0], "ms": tot["ms"],
+                         "plain_ms": tot["plain_ms"], "bound_ms": bnd,
+                         "bound_by": by, "max_abs_err": max(errs[name]),
+                         "work": f"the wkv path on rwkv6-3b's served "
+                                 f"activations, layers {layers}: {shapes}"}
+    # context only: one layer of a 4096-token prompt
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    raw = wkv_inputs(gen, 1, 4096, 40, 64, torch.bfloat16, dev)
+    raw = (*raw[:3], raw[3].float(), raw[4])
+    ms = time_ms(wkv_kernel.wkv_recurrence_cuda, [raw], reps=3)
+    dev_ms = device_ms(wkv_kernel.wkv_recurrence_cuda, [raw], reps=3,
+                       kernel_name="wkv_kernel")
+    plain_ms = time_ms(wkv_recurrence_ref, [raw], reps=1)
+    y = wkv_kernel.wkv_recurrence_cuda(*raw)
+    y_close(y, wkv_recurrence_ref(*raw), "long prompt (context)",
+            errs["wkv"], wkv_magnitude(wkv_recurrence_ref, *raw))
+    bnd, by = larger(*wkv_bound(*raw, y))
+    log(f"  [context only, not the served path] wkv on one layer of a "
+        f"4096-token prompt, (B, T, H, d) = (1, 4096, 40, 64), bf16 r/k/v: "
+        f"kernel {ms:.3f} ms (device only "
+        f"{'not measured' if dev_ms is None else f'{dev_ms:.3f}'}), plain "
+        f"{plain_ms:.1f} ms, bound {bnd:.6f} ms ({by}), kernel/bound "
+        f"{ms / bnd:.0f}")
+    return records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
@@ -854,7 +1430,8 @@ def main() -> int:
 
     libraries = {"cordic_mac": mac_kernel.library,
                  "cordic_act": act_kernel.library,
-                 "cordic_softmax": sm_kernel.library}
+                 "cordic_softmax": sm_kernel.library,
+                 "wkv": wkv_kernel.library}
     t0 = time.monotonic()
     with concurrent.futures.ThreadPoolExecutor(len(libraries)) as pool:
         futures = {n: pool.submit(f) for n, f in libraries.items()}
@@ -867,13 +1444,28 @@ def main() -> int:
             if "registers" in line or "Compiling entry" in line:
                 log(f"  ptxas: {line.strip()}")
 
-    t_kernel = phase_kernel(dev)
-    davinci_errs = phase_davinci(dev)
-    phase_reference(dev)
-    phase_cordic_exec_reference(dev)
-    served = phase_serve(dev, smi)
-    exec_served = phase_cordic_exec_serve(dev, smi, served.pop("params"))
-    davinci = phase_davinci_path(dev, exec_served["captured"], davinci_errs)
+    def phase(name, fn, *args):
+        t0 = time.monotonic()
+        res = fn(*args)
+        torch.cuda.synchronize()
+        log(f"[time] phase {name}: {time.monotonic() - t0:.1f} s")
+        return res
+
+    t_kernel = phase("kernel", phase_kernel, dev)
+    davinci_errs = phase("davinci", phase_davinci, dev)
+    phase("reference", phase_reference, dev)
+    phase("cordic_exec reference", phase_cordic_exec_reference, dev)
+    served = phase("serve", phase_serve, dev, smi)
+    exec_served = phase("cordic_exec serve", phase_cordic_exec_serve, dev,
+                        smi, served.pop("params"))
+    davinci = phase("davinci path", phase_davinci_path, dev,
+                    exec_served.pop("captured"), davinci_errs)
+    torch.cuda.empty_cache()
+    wkv_errs = phase("wkv", phase_wkv, dev)
+    phase("rwkv6 reference", phase_rwkv_reference, dev)
+    rwkv = phase("rwkv6 serve", phase_rwkv_serve, dev, smi)
+    wkv_records = phase("wkv path", phase_wkv_path, dev,
+                        rwkv.pop("recorded"), wkv_errs)
 
     # the record's work: one decode forward call, the 281 launches at
     # M = max_batch = 4; its bound is the larger of all their bytes over
@@ -887,7 +1479,8 @@ def main() -> int:
     spec = common.get_kernel("cordic_mac")
     record = {
         "name": spec.name, "route": "cuda", "source": spec.source,
-        "replaces": spec.replaces, "launches": served["launches"],
+        "replaces": spec.replaces,
+        "launches": served["launches"] + rwkv["launches"],
         "max_abs_err": t_kernel["max_abs_err"],
         "ms": sum(r["ms"] * r["count"] for r in decode),
         "plain_ms": sum(r["plain_ms"] * r["count"] for r in decode),
@@ -895,10 +1488,13 @@ def main() -> int:
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,
         "work": f"one decode forward call of glm4-9b: "
-                f"{LAUNCHES_PER_FORWARD} launches at M={m}",
+                f"{LAUNCHES_PER_FORWARD} launches at M={m}; launches: the "
+                f"glm4-9b serve ({served['launches']}) and the two rwkv6-3b "
+                f"serves ({rwkv['launches']}, {RWKV_LAUNCHES_PER_FORWARD} "
+                f"per forward call)",
     }
     records = [record]
-    for name, rec in davinci.items():
+    for name, rec in {**davinci, **wkv_records}.items():
         spec = common.get_kernel(name)
         records.append({"name": name, "route": "cuda", "source": spec.source,
                         "replaces": spec.replaces, **rec,

@@ -158,17 +158,33 @@ _FWD = {
 # Exact functions and the straight-through wrapper
 # ---------------------------------------------------------------------------
 
+def _logistic(x: torch.Tensor) -> torch.Tensor:
+    """``1 / (1 + exp(-x))`` one rounded op at a time in ``x``'s dtype,
+    ``exp`` as :mod:`~repro_torch.core.libm`'s and subnormal results
+    flushed: the reference's sigmoid, bit for bit in float32 and bfloat16
+    (``torch.sigmoid`` rounds differently)."""
+    one = torch.ones((), dtype=x.dtype, device=x.device)
+    return libm.flush(one / (one + libm.exp(-x)))
+
+
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    """``x * sigmoid(x)`` as the reference rounds and flushes it."""
+    return libm.flush(x * _logistic(x))
+
+
 def _exact(name: str, axis: int = -1) -> Callable[[torch.Tensor],
                                                    torch.Tensor]:
+    """The exact float AF: torch's, except sigmoid and silu, whose forward
+    is the reference's evaluation (gradients stay torch's)."""
     return {
         "relu": torch.relu,
         "tanh": torch.tanh,
-        "sigmoid": torch.sigmoid,
+        "sigmoid": ste(_logistic, torch.sigmoid),
         "softmax": functools.partial(torch.softmax, dim=axis),
         "gelu": functools.partial(F.gelu, approximate="tanh"),
         "selu": F.selu,
-        "swish": F.silu,
-        "silu": F.silu,
+        "swish": ste(_silu, F.silu),
+        "silu": ste(_silu, F.silu),
         "exp": torch.exp,
         "identity": lambda x: x,
     }[name]

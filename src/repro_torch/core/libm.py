@@ -1,4 +1,5 @@
-"""``exp``, ``log``, ``exp2`` and ``log2`` as the reference evaluates them.
+"""``exp``, ``log``, ``exp2``, ``log2`` and ``tanh`` as the reference
+evaluates them.
 
 The float-emulated fixed point of :mod:`repro_torch.core.cordic`,
 :mod:`~repro_torch.core.activations` and
@@ -23,7 +24,15 @@ rounded float32 operation at a time:
   reference's CPU runtime does;
 * ``exp2(x) = exp(x * ln2)`` and ``log2(x) = log(x) * (1 / ln2)``, the
   constant rounded to the input's dtype (``ln2`` is 0.69140625 in
-  bfloat16), each step rounded to that dtype.
+  bfloat16), each step rounded to that dtype;
+* ``tanh``: the input clamped to +-7.99881172, a rational polynomial
+  (odd degree 13 over even degree 6 in x, Eigen's fast float tanh) with
+  its Horner steps fused, ``x`` itself below 0.0004 and +-1 from 20 up.
+
+:func:`fma` is the fused multiply-add itself, for the model code whose
+multiply and add the reference's compiler contracts into one;
+:func:`fma_exact` rounds once in every case, as a hardware ``fmaf`` does,
+at about six times the torch operations.
 
 Every step is a plain torch float32 operation, correctly rounded on the
 CPU and on a CUDA card alike, so the card computes the same bits.
@@ -55,7 +64,19 @@ _LOG_P = (0.07037683576345444, -0.11514610052108765, 0.11676998436450958,
           0.2000071406364441, -0.24999994039535522, 0.3333333134651184)
 
 
-def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+# tanh: XLA's CPU expansion (Eigen's generic_fast_tanh_float, FMA build)
+_TANH_CLAMP = 7.998811721801758
+_TANH_TINY = 0.00039999998989515007
+_TANH_BIG = 20.0
+_TANH_P = (-2.7607683663038313e-16, 2.0001879384549948e-13,
+           -8.604671836165423e-11, 5.122297253024044e-08,
+           1.4857223504805006e-05, 0.0006372619536705315,
+           0.004893524572253227)
+_TANH_Q = (1.1982583600911312e-06, 0.00011853470641653985,
+           0.0022684347350150347, 0.0048935250379145145)
+
+
+def fma(a: torch.Tensor, b, c) -> torch.Tensor:
     """float32 ``a * b + c`` rounded once: the product of two float32 is
     exact in float64, and the float64 sum rounds to the float32 nearest
     the exact result except in double-rounding ties (about 2**-29 of
@@ -63,31 +84,51 @@ def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
     return (a.to(torch.float64) * b + c).to(_F32)
 
 
-def _flush(y: torch.Tensor) -> torch.Tensor:
-    """Subnormal float32 results -> zero of the same sign."""
+def fma_exact(a: torch.Tensor, b: torch.Tensor,
+              c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, double-rounding ties included:
+    the exact product in float64, the sum's rounding error from Knuth's
+    two-sum, the sum rounded to odd in float64 (the neighbour with an odd
+    last bit wherever the sum was inexact), then rounded to float32,
+    which is then the float32 nearest the exact result (float64 carries
+    more than two bits beyond float32's)."""
+    p = a.to(torch.float64) * b.to(torch.float64)
+    c = c.to(torch.float64)
+    s = p + c
+    c_part = s - p
+    err = (p - (s - c_part)) + (c - c_part)
+    even = (s.view(torch.int64) & 1) == 0
+    step = (err != 0) & even & torch.isfinite(s)
+    toward = torch.copysign(torch.full_like(s, math.inf), err)
+    return torch.where(step, torch.nextafter(s, toward), s).to(_F32)
+
+
+def flush(y: torch.Tensor) -> torch.Tensor:
+    """Subnormal results -> zero of the same sign, as the reference's CPU
+    runtime flushes them (float32 and bfloat16 alike)."""
     return torch.where(y.abs() < _FLT_MIN, y * 0.0, y)
 
 
 def exp(x: torch.Tensor) -> torch.Tensor:
     """``e**x``, evaluated in float32 and rounded to ``x``'s dtype."""
     dt = x.dtype
-    x = _flush(x.to(_F32))
+    x = flush(x.to(_F32))
     x = torch.where(x < _EXP_LO, _EXP_LO, x)    # NaN passes through
     x = torch.where(x > _EXP_HI, _EXP_HI, x)
-    n = torch.floor(_fma(x, _LOG2E, 0.5)).clamp(-127.0, 127.0)
-    r = _fma(-n, _C2, _fma(-n, _C1, x))
-    p = _fma(r, _EXP_P[0], _EXP_P[1])
+    n = torch.floor(fma(x, _LOG2E, 0.5)).clamp(-127.0, 127.0)
+    r = fma(-n, _C2, fma(-n, _C1, x))
+    p = fma(r, _EXP_P[0], _EXP_P[1])
     for c in _EXP_P[2:]:
-        p = _fma(p, r, c)
-    y = _fma(p, r * r, r) + 1.0
+        p = fma(p, r, c)
+    y = fma(p, r * r, r) + 1.0
     pow2n = torch.bitwise_left_shift(n.to(torch.int32) + 127, 23).view(_F32)
-    return _flush(y * pow2n).to(dt)
+    return flush(y * pow2n).to(dt)
 
 
 def log(x: torch.Tensor) -> torch.Tensor:
     """Natural log, evaluated in float32 and rounded to ``x``'s dtype."""
     dt = x.dtype
-    x = _flush(x.to(_F32))      # subnormal inputs read as zero
+    x = flush(x.to(_F32))      # subnormal inputs read as zero
     xc = torch.where(x > _FLT_MIN, x, _FLT_MIN)  # NaN handled below
     bits = xc.view(torch.int32)
     e = (torch.bitwise_right_shift(bits, 23) - 127).to(_F32) + 1.0
@@ -99,11 +140,11 @@ def log(x: torch.Tensor) -> torch.Tensor:
     z2 = z * z
     z3 = z2 * z
     c0, c1, c2, c3, c4, c5, c6, c7, c8 = _LOG_P
-    a = _fma(_fma(z, c0, c1), z, c2)
-    b = _fma(_fma(z, c3, c4), z, c5)
-    c = _fma(_fma(z, c6, c7), z, c8)
-    y = _fma(_fma(_fma(a, z3, b), z3, c), z3, e * _C2)
-    out = _fma(e, _C1, _fma(z2, -0.5, z) + y)
+    a = fma(fma(z, c0, c1), z, c2)
+    b = fma(fma(z, c3, c4), z, c5)
+    c = fma(fma(z, c6, c7), z, c8)
+    y = fma(fma(fma(a, z3, b), z3, c), z3, e * _C2)
+    out = fma(e, _C1, fma(z2, -0.5, z) + y)
     out = torch.where((x > 0) & ~torch.isinf(x), out, math.nan)
     out = torch.where(x == 0, -math.inf, out)
     return torch.where(x == math.inf, math.inf, out).to(dt)
@@ -129,6 +170,25 @@ def exp2(x: torch.Tensor) -> torch.Tensor:
 def log2(x: torch.Tensor) -> torch.Tensor:
     """``log2(x)`` as ``log(x) * (1 / ln2)``, in ``x``'s dtype."""
     return (log(x).to(_F32) * _inv_ln2_in(x.dtype)).to(x.dtype)
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    """``tanh(x)`` of a float32 tensor as the reference's CPU compiler
+    expands it (see the module docstring)."""
+    x = x.to(_F32)
+    ax = x.abs()
+    xc = torch.where(x < -_TANH_CLAMP, -_TANH_CLAMP, x)   # NaN passes
+    xc = torch.where(xc > _TANH_CLAMP, _TANH_CLAMP, xc)
+    x2 = xc * xc
+    p = fma(x2, _TANH_P[0], _TANH_P[1])
+    for c in _TANH_P[2:]:
+        p = fma(x2, p, c)
+    q = fma(x2, _TANH_Q[0], _TANH_Q[1])
+    for c in _TANH_Q[2:]:
+        q = fma(x2, q, c)
+    y = torch.where(ax < _TANH_TINY, x, (xc * p) / q)
+    return torch.where(ax >= _TANH_BIG, torch.copysign(torch.ones_like(x), x),
+                       y)
 
 
 def const(value: float, like: torch.Tensor) -> torch.Tensor:

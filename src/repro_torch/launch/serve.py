@@ -4,6 +4,8 @@
         --reduced --requests 8 --max-new 16 --policy cordic_kernel
     PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \
         --policy cordic_exec --requests 4 --max-new 8 --max-seq 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
+        --policy cordic_kernel --requests 4 --max-new 8 --max-seq 64
 
 ``--policy`` picks the execution policy: ``bf16`` (float matmuls),
 ``cordic_kernel`` (every projection through the cordic_mac kernel) or

@@ -6,14 +6,15 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import ArchConfig, ExecutionPolicy
+from repro_torch.configs.base import ArchConfig, CacheSpec, ExecutionPolicy
 from repro_torch.models import spec as pspec
 from repro_torch.models import transformer as T
 
 
 @dataclasses.dataclass(frozen=True)
 class DenseCacheOps:
-    """Per-slot ``max_seq``-long caches (the classic layout)."""
+    """Per-slot state in the classic unpaged layout: ``max_seq``-long K/V
+    caches (dense) or the O(1) recurrent state (ssm), native or int8."""
     cfg: ArchConfig
     device: torch.device
 
@@ -46,6 +47,37 @@ class Model:
     def n_params(self) -> int:
         return pspec.n_params(self.params_spec())
 
+    # -- cache format --------------------------------------------------------
+    def with_cache_dtype(self, cache_dtype) -> "Model":
+        """Same architecture with the serving-cache storage format swapped.
+
+        Accepts a :class:`CacheSpec` or the legacy string spelling:
+        ``"int8"`` turns on the per-block-scaled quantized state
+        (:mod:`repro_torch.core.quant_cache`); ``None`` or a float name
+        keeps full precision.  Formats the port does not run yet raise
+        when the new model is built.
+        """
+        if isinstance(cache_dtype, CacheSpec):
+            return self.with_cache_spec(cache_dtype)
+        if cache_dtype in (None, "none", "float", "fp32", "fp16", "bf16"):
+            return self
+        if cache_dtype == "int8":
+            if self.cfg.cache_quant == "int8":
+                return self
+            return Model(dataclasses.replace(self.cfg, cache_quant="int8"),
+                         self.device)
+        raise ValueError(f"unknown cache_dtype {cache_dtype!r}; expected "
+                         f"a CacheSpec, 'int8', a float dtype name, or None")
+
+    def with_cache_spec(self, spec: CacheSpec) -> "Model":
+        """Same architecture with ``cfg.cache`` pinned to ``spec`` (the
+        legacy ``kv_cache_bits``/``cache_quant`` knobs cleared)."""
+        if self.cfg.cache == spec:
+            return self
+        return Model(dataclasses.replace(self.cfg, cache=spec,
+                                         kv_cache_bits=16,
+                                         cache_quant="none"), self.device)
+
     def cache_ops(self) -> DenseCacheOps:
         return DenseCacheOps(self.cfg, self.device)
 
@@ -72,5 +104,5 @@ class Model:
 
 def build_model(cfg: ArchConfig, device="cuda") -> Model:
     """The model for ``cfg`` on ``device`` (``cuda`` unless the caller
-    asks for the CPU).  Families other than dense raise."""
+    asks for the CPU).  Families other than dense and ssm raise."""
     return Model(cfg, torch.device(device))

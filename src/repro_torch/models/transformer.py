@@ -1,10 +1,14 @@
-"""The decoder LM, dense family: forward, prefill and single-token decode.
+"""The decoder LM, dense and ssm families: forward, prefill and
+single-token decode.
 
 Parameters are a nested dict of tensors with the JAX reference's layout:
 every per-layer leaf is stacked along a leading ``layers`` axis, and the
-layers run as a plain Python loop over it.  The other families (moe,
-ssm, hybrid, audio, vlm) are refused here; ROADMAP queue 1 items 8 and 10
-port them.
+layers run as a plain Python loop over it.  The dense family mixes with
+GQA attention over a K/V cache; the ssm family (rwkv6) with the RWKV6
+time-mix and channel-mix over an O(1) recurrent state, stored as float32
+or, under the int8 cache (``CacheSpec(dtype="int8")``), as int8 with one
+float32 scale per state row.  The other families (moe, hybrid, audio,
+vlm) are refused here; ROADMAP queue 1 items 8 and 10 port them.
 """
 from __future__ import annotations
 
@@ -14,8 +18,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, ExecutionPolicy
+from repro_torch.core.quant_cache import dequantize_blocked, quantize_blocked
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models.spec import P
 
 Tensor = torch.Tensor
@@ -25,16 +31,26 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 def check_supported(cfg: ArchConfig) -> None:
     """Refuse what this port does not run yet, naming the ROADMAP item."""
-    if cfg.family != "dense" or cfg.input_kind != "tokens" or cfg.n_codebooks:
+    if (cfg.family not in ("dense", "ssm") or cfg.input_kind != "tokens"
+            or cfg.n_codebooks):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet; the port "
-            f"runs the dense family (ROADMAP queue 1, items 8 and 10 port "
-            f"the recurrent and remaining families)")
+            f"runs the dense and ssm families (ROADMAP queue 1, items 8 and "
+            f"10 port hybrid and the remaining families)")
     spec = cfg.cache_spec()
-    if spec.dtype != "native" or spec.paged:
+    if spec.paged:
         raise NotImplementedError(
             f"{cfg.name}: cache {spec} is not ported yet; the port serves "
-            f"the native unpaged cache (ROADMAP queue 1, items 11 and 13)")
+            f"unpaged caches (ROADMAP queue 1, item 13)")
+    if spec.dtype == "int8" and cfg.family != "ssm":
+        raise NotImplementedError(
+            f"{cfg.name}: the int8 K/V cache is not ported yet; the port "
+            f"serves the int8 recurrent state of the ssm family only "
+            f"(ROADMAP queue 1, item 11, with flash_attention_q8)")
+    if spec.dtype == "fxp8":
+        raise NotImplementedError(
+            f"{cfg.name}: the legacy fixed-scale fxp8 cache is not ported "
+            f"yet (ROADMAP queue 1, item 11)")
     if cfg.dtype not in _DTYPES:
         raise ValueError(f"unknown dtype {cfg.dtype!r}")
 
@@ -57,6 +73,40 @@ def params_spec(cfg: ArchConfig) -> Dict[str, Any]:
     def ly(*shape, axes, **kw):
         return P((Lr,) + shape, ("layers",) + axes, dtype=dt, **kw)
 
+    tree = {
+        "embed": P((cfg.vocab_size, D), ("vocab", "embed"), dtype=dt),
+        "ln_f": P((D,), ("embed",), init="ones"),
+        "lm_head": P((D, cfg.vocab_size), ("embed", "vocab"), dtype=dt,
+                     init="scaled"),
+    }
+    if cfg.family == "ssm":
+        H = cfg.n_heads
+        tree["blocks"] = {
+            "ln1": ly(D, axes=("embed",), init="ones"),
+            "tm": {
+                "mu": ly(5, D, axes=(None, "embed"), init="zeros"),
+                "w0": ly(D, axes=("embed",), init="zeros"),
+                "w_lora_a": ly(D, 64, axes=("embed", None), init="scaled"),
+                "w_lora_b": ly(64, D, axes=(None, "embed"), init="scaled"),
+                "bonus": ly(H, dh, axes=("heads", None), init="zeros"),
+                "wr": ly(D, D, axes=("embed", "heads"), init="scaled"),
+                "wk": ly(D, D, axes=("embed", "heads"), init="scaled"),
+                "wv": ly(D, D, axes=("embed", "heads"), init="scaled"),
+                "wg": ly(D, D, axes=("embed", "heads"), init="scaled"),
+                "wo": ly(D, D, axes=("heads", "embed"), init="scaled"),
+                "ln_w": ly(D, axes=("embed",), init="ones"),
+            },
+            "cm": {
+                "mu_k": ly(D, axes=("embed",), init="zeros"),
+                "mu_r": ly(D, axes=("embed",), init="zeros"),
+                "wk": ly(D, F, axes=("embed", "mlp"), init="scaled"),
+                "wv": ly(F, D, axes=("mlp", "embed"), init="scaled"),
+                "wr": ly(D, D, axes=("embed", "qkv"), init="scaled"),
+            },
+            "ln2": ly(D, axes=("embed",), init="ones"),
+        }
+        return tree
+
     attn = {
         "wq": ly(D, Hq * dh, axes=("embed", "heads"), init="scaled"),
         "wk": ly(D, Hkv * dh, axes=("embed", "kv_heads"), init="scaled"),
@@ -67,22 +117,17 @@ def params_spec(cfg: ArchConfig) -> Dict[str, Any]:
         attn["bq"] = ly(Hq * dh, axes=("heads",), init="zeros")
         attn["bk"] = ly(Hkv * dh, axes=("kv_heads",), init="zeros")
         attn["bv"] = ly(Hkv * dh, axes=("kv_heads",), init="zeros")
-    return {
-        "embed": P((cfg.vocab_size, D), ("vocab", "embed"), dtype=dt),
-        "ln_f": P((D,), ("embed",), init="ones"),
-        "lm_head": P((D, cfg.vocab_size), ("embed", "vocab"), dtype=dt,
-                     init="scaled"),
-        "blocks": {
-            "ln1": ly(D, axes=("embed",), init="ones"),
-            "ln2": ly(D, axes=("embed",), init="ones"),
-            "attn": attn,
-            "ffn": {
-                "w_gate": ly(D, F, axes=("embed", "mlp"), init="scaled"),
-                "w_up": ly(D, F, axes=("embed", "mlp"), init="scaled"),
-                "w_down": ly(F, D, axes=("mlp", "embed"), init="scaled"),
-            },
+    tree["blocks"] = {
+        "ln1": ly(D, axes=("embed",), init="ones"),
+        "ln2": ly(D, axes=("embed",), init="ones"),
+        "attn": attn,
+        "ffn": {
+            "w_gate": ly(D, F, axes=("embed", "mlp"), init="scaled"),
+            "w_up": ly(D, F, axes=("embed", "mlp"), init="scaled"),
+            "w_down": ly(F, D, axes=("mlp", "embed"), init="scaled"),
         },
     }
+    return tree
 
 
 def layer_windows(cfg: ArchConfig, seq_len: int) -> np.ndarray:
@@ -124,12 +169,41 @@ def _ffn(x: Tensor, bp: Dict[str, Any], cfg: ArchConfig,
 def block_forward(x: Tensor, bp: Dict[str, Any], cfg: ArchConfig,
                   pol: ExecutionPolicy, positions: Tensor, window
                   ) -> Tuple[Tensor, Tensor, Tensor]:
-    """One decoder block over a full sequence.  Returns (x, k, v)."""
+    """One dense decoder block over a full sequence.  Returns (x, k, v)."""
     h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
     q, k, v = A.qkv(h, _attn_params(bp), cfg, pol, positions)
     ctx = A.attention(q, k, v, cfg, pol, positions, positions, window)
     x = x + L.dense(ctx.reshape(*x.shape[:2], -1), bp["attn"]["wo"], pol)
     return _ffn(x, bp, cfg, pol), k, v
+
+
+def ssm_block(x: Tensor, bp: Dict[str, Any], cfg: ArchConfig,
+              pol: ExecutionPolicy, x_prev: Tensor, wkv: Tensor,
+              cm_prev: Tensor, mask: Optional[Tensor] = None,
+              lengths: Optional[Tensor] = None
+              ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """One rwkv6 block from state (x_prev, wkv float32, cm_prev).
+
+    Returns (x, x_prev, cm_prev, wkv): the block's output and its new
+    token-shift boundaries and recurrent state."""
+    h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
+    tm_out, (xp, wkv) = S.rwkv6_timemix(
+        h, S.Rwkv6Params(**bp["tm"]), cfg, pol, (x_prev, wkv), mask=mask,
+        lengths=lengths)
+    x = x + tm_out
+    h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
+    x, cp = S.rwkv6_channelmix(h, S.Rwkv6ChannelParams(**bp["cm"]), cfg, pol,
+                               cm_prev, lengths=lengths, residual=x)
+    return x, xp, cp, wkv
+
+
+def _zero_rec(cfg: ArchConfig, b: int, like: Tensor
+              ) -> Tuple[Tensor, Tensor, Tensor]:
+    """A prefill's starting recurrent state: (x_prev, wkv, cm_prev)."""
+    d, dk = cfg.d_model, cfg.d_model // cfg.n_heads
+    zeros = torch.zeros((b, d), dtype=like.dtype, device=like.device)
+    return (zeros, torch.zeros((b, cfg.n_heads, dk, dk), dtype=torch.float32,
+                               device=like.device), zeros)
 
 
 def forward(params: Dict[str, Any], batch: Dict[str, Tensor],
@@ -141,32 +215,76 @@ def forward(params: Dict[str, Any], batch: Dict[str, Tensor],
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     windows = layer_windows(cfg, s)
     for i in range(cfg.n_layers):
-        x, _, _ = block_forward(x, _layer(params["blocks"], i), cfg, pol,
-                                positions, int(windows[i]))
+        bp = _layer(params["blocks"], i)
+        if cfg.family == "ssm":
+            x = ssm_block(x, bp, cfg, pol, *_zero_rec(cfg, x.shape[0], x))[0]
+        else:
+            x = block_forward(x, bp, cfg, pol, positions, int(windows[i]))[0]
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     return L.dense(x, params["lm_head"], pol)
 
 
 # ---------------------------------------------------------------------------
-# Serving: prefill + single-token decode with stacked per-layer caches
+# Serving: prefill + single-token decode with stacked per-layer state
 # ---------------------------------------------------------------------------
 
 class DecodeState(NamedTuple):
-    """Stacked (n_layers leading dim) decode state of the dense family."""
-    cache_k: Tensor                     # (L, B, S, Hkv, dh)
-    cache_v: Tensor
-    pos: Tensor                         # () tokens seen, or (B,) per slot
+    """Stacked (n_layers leading dim) decode state.
+
+    The dense family fills the K/V caches, the ssm family the recurrent
+    fields; the others stay ``None``.  ``wkv_scale`` carries the int8
+    state's per-row float32 scales (``CacheSpec(dtype="int8")`` only).
+    """
+    cache_k: Optional[Tensor] = None    # (L, B, S, Hkv, dh)
+    cache_v: Optional[Tensor] = None
+    pos: Optional[Tensor] = None        # () tokens seen, or (B,) per slot
+    x_prev: Optional[Tensor] = None     # (L, B, D) time-mix boundary token
+    cm_prev: Optional[Tensor] = None    # (L, B, D) channel-mix boundary
+    wkv: Optional[Tensor] = None        # (L, B, H, dk, dk) rwkv state
+    wkv_scale: Optional[Tensor] = None  # (L, B, H, dk, 1) int8 mode only
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_seq: int,
                       device) -> DecodeState:
     check_supported(cfg)
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim_)
     dt = dtype_of(cfg)
+    pos = torch.zeros((), dtype=torch.int32, device=device)
+    if cfg.family == "ssm":
+        lr, d, dh = cfg.n_layers, cfg.d_model, cfg.head_dim_
+        qc = cfg.cache_spec().quantized
+        shape = (lr, batch, cfg.n_heads, dh, dh)
+        return DecodeState(
+            pos=pos,
+            x_prev=torch.zeros((lr, batch, d), dtype=dt, device=device),
+            cm_prev=torch.zeros((lr, batch, d), dtype=dt, device=device),
+            wkv=torch.zeros(shape, device=device,
+                            dtype=torch.int8 if qc else torch.float32),
+            wkv_scale=(torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
+                                   device=device) if qc else None))
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim_)
     return DecodeState(
         cache_k=torch.zeros(shape, dtype=dt, device=device),
         cache_v=torch.zeros(shape, dtype=dt, device=device),
-        pos=torch.zeros((), dtype=torch.int32, device=device))
+        pos=pos)
+
+
+def _store_rec(state: DecodeState, i: int, xp: Tensor, cp: Tensor,
+               wkv: Tensor) -> None:
+    """Write layer ``i``'s new recurrent state into ``state``, in place;
+    the int8 mode quantizes the float32 wkv state once here."""
+    state.x_prev[i] = xp
+    state.cm_prev[i] = cp
+    if state.wkv_scale is None:
+        state.wkv[i] = wkv
+    else:
+        state.wkv[i], state.wkv_scale[i] = quantize_blocked(wkv)
+
+
+def _layer_wkv(state: DecodeState, i: int) -> Tensor:
+    """Layer ``i``'s wkv state as float32 (dequantized in the int8 mode)."""
+    if state.wkv_scale is None:
+        return state.wkv[i]
+    return dequantize_blocked(state.wkv[i], state.wkv_scale[i])
 
 
 def decode_step(params: Dict[str, Any], state: DecodeState,
@@ -175,29 +293,39 @@ def decode_step(params: Dict[str, Any], state: DecodeState,
                 ) -> Tuple[Tensor, DecodeState]:
     """One new token for every sequence.  batch: {"tokens": (B, 1)}.
 
-    Returns (logits (B, 1, V), state).  The new K/V land in ``state``'s
-    caches in place; the returned state shares them and advances ``pos``.
+    Returns (logits (B, 1, V), state).  The new K/V (dense) or the new
+    recurrent state (ssm; requantized per token in the int8 mode) land in
+    ``state``'s tensors in place; the returned state shares them and
+    advances ``pos``.
     """
     pol = pol or cfg.exec_policy
     x = L.embedding_lookup(batch["tokens"], params["embed"])
     b = x.shape[0]
     pos = state.pos
-    cache_len = state.cache_k.shape[2]
-    if cfg.sliding_window and cache_len <= cfg.sliding_window:
-        # ring cache: every layer is windowed
-        windows = np.full((cfg.n_layers,), cfg.sliding_window, np.int32)
+    if cfg.family == "ssm":
+        for i in range(cfg.n_layers):
+            x, xp, cp, wkv = ssm_block(
+                x, _layer(params["blocks"], i), cfg, pol, state.x_prev[i],
+                _layer_wkv(state, i), state.cm_prev[i])
+            _store_rec(state, i, xp, cp, wkv)
     else:
-        windows = layer_windows(cfg, cache_len)
-    positions = (pos[:, None].to(torch.int32) if pos.dim() == 1
-                 else pos.reshape(1).to(torch.int32))
-    for i in range(cfg.n_layers):
-        bp = _layer(params["blocks"], i)
-        h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
-        q, k, v = A.qkv(h, _attn_params(bp), cfg, pol, positions)
-        ctx = A.decode_attention(q, k, v, state.cache_k[i], state.cache_v[i],
-                                 pos, cfg, pol, int(windows[i]))
-        x = x + L.dense(ctx.reshape(b, 1, -1), bp["attn"]["wo"], pol)
-        x = _ffn(x, bp, cfg, pol)
+        cache_len = state.cache_k.shape[2]
+        if cfg.sliding_window and cache_len <= cfg.sliding_window:
+            # ring cache: every layer is windowed
+            windows = np.full((cfg.n_layers,), cfg.sliding_window, np.int32)
+        else:
+            windows = layer_windows(cfg, cache_len)
+        positions = (pos[:, None].to(torch.int32) if pos.dim() == 1
+                     else pos.reshape(1).to(torch.int32))
+        for i in range(cfg.n_layers):
+            bp = _layer(params["blocks"], i)
+            h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
+            q, k, v = A.qkv(h, _attn_params(bp), cfg, pol, positions)
+            ctx = A.decode_attention(q, k, v, state.cache_k[i],
+                                     state.cache_v[i], pos, cfg, pol,
+                                     int(windows[i]))
+            x = x + L.dense(ctx.reshape(b, 1, -1), bp["attn"]["wo"], pol)
+            x = _ffn(x, bp, cfg, pol)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = L.dense(x, params["lm_head"], pol)
     return logits, state._replace(pos=pos + 1)
@@ -209,29 +337,42 @@ def prefill(params: Dict[str, Any], batch: Dict[str, Tensor],
             ) -> Tuple[Tensor, DecodeState]:
     """Full-sequence forward that also populates the decode state.
 
-    The per-layer K/V land in a cache of length ``S + headroom``.
-    ``lengths`` (B,) marks each row's true prompt length in a batch whose
-    prompts are right-padded to a common bucket: causal attention already
-    ignores the trailing pads for the real positions, the returned logits
-    are each row's last real position, and ``state.pos`` comes back per
-    row.  Returns (logits (B, 1, V), state).
+    Dense: the per-layer K/V land in a cache of length ``S + headroom``.
+    Ssm: the sequence folds into the O(1) recurrent state (quantized once
+    at the end of each layer in the int8 mode).  ``lengths`` (B,) marks
+    each row's true prompt length in a batch whose prompts are
+    right-padded to a common bucket: causal attention already ignores the
+    trailing pads for the real positions, pad steps are exact no-ops of
+    the recurrent state, the returned logits are each row's last real
+    position, and ``state.pos`` comes back per row.  Returns (logits
+    (B, 1, V), state).
     """
     pol = pol or cfg.exec_policy
     x = L.embedding_lookup(batch["tokens"], params["embed"])
     b, s = x.shape[:2]
-    positions = torch.arange(s, dtype=torch.int32, device=x.device)
-    windows = layer_windows(cfg, s)
     state = init_decode_state(cfg, b, s + headroom, x.device)
-    for i in range(cfg.n_layers):
-        x, k, v = block_forward(x, _layer(params["blocks"], i), cfg, pol,
-                                positions, int(windows[i]))
-        state.cache_k[i, :, :s] = k
-        state.cache_v[i, :, :s] = v
+    if lengths is not None:
+        lengths = torch.as_tensor(lengths, device=x.device)
+    if cfg.family == "ssm":
+        mask = (None if lengths is None else
+                torch.arange(s, device=x.device)[None, :] < lengths[:, None])
+        for i in range(cfg.n_layers):
+            x, xp, cp, wkv = ssm_block(
+                x, _layer(params["blocks"], i), cfg, pol,
+                *_zero_rec(cfg, b, x), mask=mask, lengths=lengths)
+            _store_rec(state, i, xp, cp, wkv)
+    else:
+        positions = torch.arange(s, dtype=torch.int32, device=x.device)
+        windows = layer_windows(cfg, s)
+        for i in range(cfg.n_layers):
+            x, k, v = block_forward(x, _layer(params["blocks"], i), cfg, pol,
+                                    positions, int(windows[i]))
+            state.cache_k[i, :, :s] = k
+            state.cache_v[i, :, :s] = v
     if lengths is None:
         x_last = x[:, -1:, :]
         pos = torch.tensor(s, dtype=torch.int32, device=x.device)
     else:
-        lengths = torch.as_tensor(lengths, device=x.device)
         x_last = x[torch.arange(b, device=x.device), lengths.long() - 1][:, None]
         pos = lengths.to(torch.int32)
     x_last = L.rms_norm(x_last, params["ln_f"], cfg.norm_eps)
@@ -258,21 +399,30 @@ def slot_update(state: DecodeState, sub: DecodeState, slots) -> DecodeState:
     ``sub`` is a prefill over a (bucket-padded) batch; ``slots`` (B_sub,)
     maps each ``sub`` row to a target slot.  Indices >= max_batch are
     dropped (the engine pads admission groups with a sentinel).  A prefill
-    cache shorter than the slot cache is zero-padded along the sequence.
+    cache shorter than the slot cache is zero-padded along the sequence;
+    the recurrent leaves (token-shift boundaries, wkv state and its
+    scales) scatter along their batch axis.
     """
     slots = torch.as_tensor(slots, dtype=torch.long)
     keep = (slots >= 0) & (slots < state.pos.shape[0])
     rows = torch.nonzero(keep).flatten()
     dst = slots[keep].to(state.pos.device)
     rows_dev = rows.to(state.pos.device)
-    s_src, s_tgt = sub.cache_k.shape[2], state.cache_k.shape[2]
-    if s_src > s_tgt:
-        raise ValueError(f"prefill cache ({s_src}) exceeds slot cache "
-                         f"({s_tgt}); raise the engine's max_seq")
-    for name in ("cache_k", "cache_v"):
+    if state.cache_k is not None:
+        s_src, s_tgt = sub.cache_k.shape[2], state.cache_k.shape[2]
+        if s_src > s_tgt:
+            raise ValueError(f"prefill cache ({s_src}) exceeds slot cache "
+                             f"({s_tgt}); raise the engine's max_seq")
+    for name in ("cache_k", "cache_v", "x_prev", "cm_prev", "wkv",
+                 "wkv_scale"):
         tgt, src = getattr(state, name), getattr(sub, name)
-        tgt[:, dst] = 0
-        tgt[:, dst, :s_src] = src[:, rows_dev].to(tgt.dtype)
+        if tgt is None or src is None:
+            continue
+        if name.startswith("cache_"):
+            tgt[:, dst] = 0
+            tgt[:, dst, :s_src] = src[:, rows_dev].to(tgt.dtype)
+        else:
+            tgt[:, dst] = src[:, rows_dev].to(tgt.dtype)
     pos = sub.pos.expand(slots.shape) if sub.pos.dim() == 0 else sub.pos
     state.pos[dst] = pos[rows_dev].to(state.pos.dtype)
     return state

@@ -20,9 +20,11 @@ program per bucket) takes the form of ``prefill_counts``: prefills per
 bucket shape, every one at the fixed batch ``max_batch``.
 
 Per-request outputs equal single-stream decoding (see
-``tests/test_torch_serving.py``).  Speculative decoding, paged caches,
-snapshots, backpressure and the serving mesh are not ported yet;
-:class:`ServeConfig` refuses their knobs, naming the ROADMAP item.
+``tests/test_torch_serving.py`` and ``tests/test_torch_ssm.py``).
+Speculative decoding, paged caches, snapshots, backpressure and the
+serving mesh are not ported yet; :class:`ServeConfig` refuses their
+knobs, and the model the int8 K/V cache and paged caches, naming the
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -43,8 +45,6 @@ _LATER_KNOBS = {
     "spec_k_max": "12 (speculative decode)",
     "spec_adaptive": "12 (speculative decode)",
     "drafter": "12 (speculative decode)",
-    "cache_dtype": "11 (int8 serving cache)",
-    "cache": "11 and 13 (int8 and paged caches)",
     "num_blocks": "13 (paged cache)",
     "prefix_cache": "13 (paged cache and radix prefix cache)",
     "max_queue": "14 (backpressure)",
@@ -61,9 +61,12 @@ _LATER_KNOBS = {
 class ServeConfig:
     """The knobs of :class:`ServeEngine`, validated in one place.
 
-    The first four are what this engine reads.  The rest keep the JAX
-    reference's names and defaults; setting one raises
-    ``NotImplementedError`` naming the ROADMAP item that ports it.
+    The first four and the cache format (``cache``, a :class:`CacheSpec`,
+    or the legacy ``cache_dtype`` string; not both) are what this engine
+    reads; a format the model cannot serve yet raises when the engine
+    applies it.  The rest keep the JAX reference's names and defaults;
+    setting one raises ``NotImplementedError`` naming the ROADMAP item
+    that ports it.
     """
 
     max_batch: int = 8
@@ -100,6 +103,10 @@ class ServeConfig:
         if self.min_bucket < 1:
             raise ValueError(f"min_bucket must be >= 1, got "
                              f"{self.min_bucket}")
+        if self.cache is not None and self.cache_dtype is not None:
+            raise ValueError("cache (a CacheSpec) and the legacy "
+                             "cache_dtype string are two spellings of the "
+                             "same thing; pass exactly one")
 
 
 @dataclasses.dataclass
@@ -143,6 +150,12 @@ class ServeEngine:
                  config: Optional[ServeConfig] = None):
         config = config or ServeConfig()
         self.config = config
+        # the cache format, as the reference applies it: the model with
+        # its state stored as the config asks (int8: ~4x smaller state)
+        if config.cache is not None:
+            model = model.with_cache_spec(config.cache)
+        elif config.cache_dtype is not None:
+            model = model.with_cache_dtype(config.cache_dtype)
         self.model = model
         self.params = params
         self.device = model.device

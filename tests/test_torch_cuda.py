@@ -18,17 +18,20 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import CORDIC_EXEC, ExecutionPolicy, get_arch
+from repro_torch.configs import (CORDIC_EXEC, CacheSpec, ExecutionPolicy,
+                                 get_arch)
 from repro_torch.core import activations as acts
 from repro_torch.core import fixed_point as fxp
 from repro_torch.core import quantization as quant
-from repro_torch.kernels import common, cordic_act, cordic_softmax
+from repro_torch.kernels import common, cordic_act, cordic_softmax, wkv, wkv_q8
 from repro_torch.kernels.cordic_act.ops import cordic_act_raw
 from repro_torch.kernels.cordic_act.ref import cordic_act_raw_ref
 from repro_torch.kernels.cordic_mac import ops
 from repro_torch.kernels.cordic_mac.ref import cordic_matmul_raw_ref
 from repro_torch.kernels.cordic_softmax.ops import cordic_softmax_raw
 from repro_torch.kernels.cordic_softmax.ref import cordic_softmax_raw_ref
+from repro_torch.kernels.wkv import kernel as wkv_kernel
+from repro_torch.kernels.wkv.ref import wkv_q8_ref, wkv_recurrence_ref
 from repro_torch.models.model_zoo import build_model
 from repro_torch.models.spec import to_device
 from repro_torch.runtime.serve_loop import Request, ServeConfig, ServeEngine
@@ -254,3 +257,136 @@ def test_cordic_exec_reduced_model_on_card(cuda):
         want = build_model(cfg, "cpu").forward(params, {"tokens": tokens})
     assert got.shape == (2, 9, 256) and torch.isfinite(got).all()
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# wkv kernels (RWKV6 recurrence, float and int8 state)
+# ---------------------------------------------------------------------------
+
+WKV_TOL = 5e-5
+
+
+def _wkv_raw(gen, bh, t, d, dtype, dev):
+    r, k, v = (torch.randn((bh, t, d), generator=gen, device=dev).to(dtype)
+               for _ in range(3))
+    w = (torch.rand((bh, t, d), generator=gen, device=dev) * 0.7 + 0.3
+         ).to(dtype)
+    return r, k, v, w, torch.randn((bh, d), generator=gen, device=dev)
+
+
+def _y_close(got, want):
+    """float32 output: atol = rtol = 5e-5; a bfloat16 output may also round
+    the other way, one bfloat16 step (2**-7 of the value)."""
+    rtol = WKV_TOL if got.dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=WKV_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,t,d", [(64, 64, 16), (64, 128, 32), (64, 32, 8),
+                                    (160, 16, 64), (80, 1, 64), (16, 7, 64),
+                                    (4, 65, 32)])
+def test_wkv_kernels_match_plain_on_card(cuda, bh, t, d, dtype):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(bh * t + d)
+    raw = _wkv_raw(gen, bh, t, d, dtype, cuda)
+    common.reset_counts()
+    got = wkv_kernel.wkv_recurrence_cuda(*raw)
+    assert got.dtype == dtype
+    _y_close(got, wkv_recurrence_ref(*raw))
+    for s0, sc in ((torch.randint(-127, 128, (bh, d, d), generator=gen,
+                                  device=cuda, dtype=torch.int8),
+                    torch.rand((bh, d), generator=gen, device=cuda) * 0.1),
+                   (torch.zeros((bh, d, d), dtype=torch.int8, device=cuda),
+                    torch.zeros((bh, d), device=cuda))):
+        out, q, scale = wkv_kernel.wkv_recurrence_q8_cuda(*raw, s0, sc)
+        want = wkv_q8_ref(*raw, s0, sc)
+        _y_close(out, want[0])
+        assert torch.equal(q, want[1]) and torch.equal(scale, want[2])
+    assert (common.get_kernel("wkv").launches,
+            common.get_kernel("wkv_q8").launches) == (1, 2)
+
+
+def test_wkv_frontends_launch_the_kernels(cuda):
+    """The public (B, T, H, d) entry points on CUDA tensors launch the
+    kernels and never take the plain version."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    b, t, h, d = 2, 9, 40, 64
+    r, k, v, w = (torch.randn((b, t, h, d), generator=gen, device=cuda)
+                  for _ in range(4))
+    w = torch.sigmoid(w)
+    u = torch.randn((h, d), generator=gen, device=cuda)
+    s0 = torch.randint(-127, 128, (b, h, d, d), generator=gen, device=cuda,
+                       dtype=torch.int8)
+    sc = torch.rand((b, h, d), generator=gen, device=cuda)
+    common.reset_counts()
+    y = wkv(r, k, v, w, u)
+    y8, q, scale = wkv_q8(r, k, v, w, u, s0, sc)
+    assert y.shape == (b, t, h, d) and q.shape == (b, h, d, d)
+    for name in ("wkv", "wkv_q8"):
+        spec = common.get_kernel(name)
+        assert (spec.launches, spec.plain_calls) == (1, 0), name
+    want = wkv(*(x.cpu() for x in (r, k, v, w, u)))
+    _y_close(y.cpu(), want)
+    _y_close(y8.cpu(), wkv_q8(*(x.cpu() for x in (r, k, v, w, u, s0, sc)))[0])
+
+
+def test_wkv_kernels_refuse_bad_inputs(cuda):
+    raw = [torch.zeros((4, 3, 16), device=cuda) for _ in range(4)]
+    u = torch.zeros((4, 16), device=cuda)
+    bad = (
+        ([raw[0].cpu()] + raw[1:] + [u]),            # a CPU tensor
+        ([raw[0].double()] + raw[1:] + [u]),         # float64
+        ([raw[0].transpose(0, 1)] + raw[1:] + [u]),  # wrong shape
+        ([torch.zeros((4, 3, 128), device=cuda)] * 4
+         + [torch.zeros((4, 128), device=cuda)]),   # d = 128
+        (raw + [u[:, :8]]),                          # u of another width
+    )
+    for args in bad:
+        with pytest.raises(ValueError, match="wkv"):
+            wkv_kernel.wkv_recurrence_cuda(*args)
+    s0 = torch.zeros((4, 16, 16), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="state"):
+        wkv_kernel.wkv_recurrence_q8_cuda(*raw, u, s0.float(),
+                                          torch.zeros((4, 16), device=cuda))
+
+
+@pytest.mark.parametrize("cache", [None, "int8"])
+def test_reduced_rwkv6_on_card(cuda, cache):
+    """float32 matmuls: card vs CPU within 1e-4; under cordic_kernel the
+    engine (6 requests through 4 slots) equals single-stream decode, with
+    the float32 and the int8 recurrent state."""
+    base = get_arch("rwkv6-3b").reduced().scaled(dtype="float32")
+    if cache:
+        base = base.scaled(cache=CacheSpec(dtype=cache))
+    params = build_model(base, "cpu").init(seed=0)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (2, 9)))
+    with torch.inference_mode():
+        got = build_model(base, cuda).forward(to_device(params, cuda),
+                                              {"tokens": tokens.to(cuda)})
+        want = build_model(base, "cpu").forward(params, {"tokens": tokens})
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    cfg = dataclasses.replace(base, exec_policy=ExecutionPolicy(
+        matmul="cordic_kernel"))
+    model = build_model(cfg, cuda)
+    params = to_device(params, cuda)
+    rng = np.random.default_rng(1)
+    reqs = [Request(i, rng.integers(0, 256, n).astype(np.int32),
+                    max_new_tokens=k)
+            for i, (n, k) in enumerate(zip((5, 11, 16, 3, 24, 8),
+                                           (4, 9, 2, 12, 1, 6)))]
+    done = ServeEngine(model, params, ServeConfig(max_batch=4, max_seq=64)
+                       ).serve(reqs)
+    assert len(done) == len(reqs)
+    for r in done:
+        with torch.inference_mode():
+            lg, st = model.prefill(
+                params, {"tokens": torch.from_numpy(r.prompt)[None].to(cuda)})
+            seq = [int(lg.reshape(-1).argmax())]
+            for _ in range(r.max_new_tokens - 1):
+                lg, st = model.decode_step(
+                    params, st, {"tokens": torch.tensor([[seq[-1]]],
+                                                        device=cuda)})
+                seq.append(int(lg.reshape(-1).argmax()))
+        assert r.output.tolist() == seq, r.rid

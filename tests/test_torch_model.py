@@ -203,14 +203,23 @@ def test_unported_modes_raise_naming_the_roadmap_item():
     """The families and cache formats not ported yet are refused by name.
     (The W8A8/W8A16 matmuls, the CORDIC AFs and the CORDIC softmax run
     now, held to the reference in ``test_layers_under_cordic_policies_*``
-    and the ``cordic_exec`` model cases above.)"""
+    and the ``cordic_exec`` model cases above; rwkv6 and its int8
+    recurrent state in ``test_torch_ssm.py``.)"""
     cfg = get_arch("glm4-9b").reduced()
-    for arch in ("rwkv6-3b", "arctic-480b", "hymba-1.5b", "musicgen-medium"):
+    for arch in ("arctic-480b", "hymba-1.5b", "musicgen-medium"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(get_arch(arch).reduced(), "cpu")
-    for cache in (CacheSpec(dtype="int8"), CacheSpec(paged=True)):
+    for cache in (CacheSpec(dtype="int8"), CacheSpec(paged=True),
+                  CacheSpec(dtype="fxp8")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(cfg.scaled(cache=cache), "cpu")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        build_model(cfg, "cpu").with_cache_dtype("int8")
+    ssm = get_arch("rwkv6-3b").reduced()
+    assert build_model(ssm.scaled(cache=CacheSpec(dtype="int8")),
+                       "cpu").cfg.cache_spec().quantized
+    with pytest.raises(NotImplementedError, match="item 13"):
+        build_model(ssm.scaled(cache=CacheSpec(paged=True)), "cpu")
     with pytest.raises(ValueError, match="matmul"):
         L.dense(torch.zeros((2, 64)), torch.zeros((64, 8)),
                 ExecutionPolicy(matmul="fxp4"))

@@ -24,7 +24,8 @@ from repro.models.model_zoo import build_model as j_build_model
 from repro.runtime.serve_loop import Request as JRequest
 from repro.runtime.serve_loop import ServeConfig as JServeConfig
 from repro.runtime.serve_loop import ServeEngine as JServeEngine
-from repro_torch.configs import CORDIC_EXEC, ExecutionPolicy, get_arch
+from repro_torch.configs import (CORDIC_EXEC, CacheSpec, ExecutionPolicy,
+                                 get_arch)
 from repro_torch.convert import params_from_numpy
 from repro_torch.models.model_zoo import build_model
 from repro_torch.runtime.serve_loop import (Request, ServeConfig, ServeEngine,
@@ -159,14 +160,21 @@ def test_sampling_is_seeded_and_in_vocab(pair):
 
 
 def test_refuses_unported_knobs_and_bad_requests():
-    for knob in ({"spec_k": 2}, {"cache_dtype": "int8"}, {"max_queue": 4},
-                 {"snapshot_dir": "x"}, {"num_shards": 2},
-                 {"prefix_cache": False}):
+    for knob in ({"spec_k": 2}, {"max_queue": 4}, {"snapshot_dir": "x"},
+                 {"num_shards": 2}, {"prefix_cache": False}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServeConfig(**knob)
     with pytest.raises(ValueError):
         ServeConfig(max_batch=0)
+    with pytest.raises(ValueError, match="exactly one"):
+        ServeConfig(cache_dtype="int8", cache=CacheSpec(dtype="int8"))
     cfg = get_arch("glm4-9b").reduced()
+    # the int8 format is the ssm family's only: a dense model's engine
+    # refuses it (the int8 K/V cache), naming the ROADMAP item
+    for knob in ({"cache_dtype": "int8"}, {"cache": CacheSpec(dtype="int8")},
+                 {"cache": CacheSpec(paged=True)}):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 1"):
+            ServeEngine(build_model(cfg, "cpu"), None, ServeConfig(**knob))
     eng = ServeEngine(build_model(cfg, "cpu"), None,
                       ServeConfig(max_batch=2, max_seq=16))
     prompt = np.arange(8, dtype=np.int32)
