@@ -85,6 +85,36 @@ Phases, in order; any failure exits non-zero and prints no result:
                kernel, plain version and bound timed on them, and (context
                only) one layer of a 4096-token prompt.
 
+13. flash     — kernels 4 and 6 (``flash_attention``,
+               ``flash_attention_bwd``): ``repro_torch.kernels.flash_attention``
+               forward and backward at glm4-9b's training layout (B 1, S 4096,
+               32 q heads, 2 kv heads of 128, bf16, causal), every count set
+               to 0 before and read after; then out, lse, dq, dk, dv against
+               the plain versions (the reference's gradient test shapes, d =
+               64 and 128, float32 and bf16, and that layout; atol = rtol =
+               2e-4), the ops-level gradient against the exact attention VJP;
+               kernel, plain version, bound and scaled_dot_product_attention
+               timed at that layout.
+14. rwkv6 train — full-width rwkv6-3b trained under ``CORDIC_EXEC`` by the
+               port's ``Trainer`` (as ``launch/train.py --cordic --batch 2
+               --seq 256 --steps 3`` builds it: SyntheticStream, AdamW with
+               float32 moments, remat): finite losses and grad norms,
+               parameters changed, no plain-version call; step time,
+               tokens/s, peak memory, one profiled step; layers 0 and 31's
+               recurrence inputs and output gradient recorded.  Then the
+               reduced rwkv6 and glm4 trained 3 steps on the card against the
+               CPU in float32 (float32 matmuls and ``CORDIC_EXEC``; losses
+               within 1e-4), and a ``fault_at`` restart on the reduced rwkv6
+               whose resumed losses equal the uninterrupted run's.
+15. wkv backward path — ``repro_torch.kernels.wkv`` forward (with
+               checkpoints, kernel 7) and backward (kernel 9) through autograd
+               on the recorded tensors, every count set to 0 before and read
+               after; checkpoints equal to the plain version's, gradients
+               within a per-output bar of the plain adjoint sweep and of the
+               model's own autograd gradients; kernel 9, plain version and
+               bound timed, and (context only) one layer of a 4096-token
+               sequence.
+
 Each phase prints its seconds.  The last three lines are nvidia-smi's
 name and power limit, one JSON object with a record per kernel, and
 ``{"ok": true, "device": {...}}``.
@@ -96,10 +126,12 @@ import contextlib
 import dataclasses
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -107,13 +139,15 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.configs import (CORDIC_EXEC, CacheSpec,  # noqa: E402
-                                 ExecutionPolicy, get_arch)
+from repro_torch.configs import (CORDIC_EXEC, LM_SHAPES,  # noqa: E402
+                                 CacheSpec, ExecutionPolicy, get_arch)
 from repro_torch.core import activations as acts  # noqa: E402
 from repro_torch.core import fixed_point as fxp  # noqa: E402
 from repro_torch.core import quantization as quant  # noqa: E402
+from repro_torch.data.pipeline import stream_for_model  # noqa: E402
 from repro_torch.kernels import (common, cordic_act,  # noqa: E402
-                                 cordic_softmax, wkv, wkv_q8)
+                                 cordic_softmax, flash_attention, wkv,
+                                 wkv_q8)
 from repro_torch.kernels.cordic_act import kernel as act_kernel  # noqa: E402
 from repro_torch.kernels.cordic_act.ref import (  # noqa: E402
     EXP_ARG_CLAMP, GUARD_BITS, cordic_act_raw_ref, exp_neg_raw_ref)
@@ -122,16 +156,27 @@ from repro_torch.kernels.cordic_mac.ref import cordic_matmul_raw_ref  # noqa: E4
 from repro_torch.kernels.cordic_softmax import kernel as sm_kernel  # noqa: E402
 from repro_torch.kernels.cordic_softmax.ref import (  # noqa: E402
     cordic_softmax_raw_ref)
+from repro_torch.kernels.flash_attention import \
+    kernel as flash_kernel  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    flash_bwd_ref, flash_fwd_ref)
 from repro_torch.kernels.wkv import kernel as wkv_kernel  # noqa: E402
+from repro_torch.kernels.wkv import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.wkv.ref import (wkv_q8_ref,  # noqa: E402
+                                         wkv_recurrence_bwd_ref,
                                          wkv_recurrence_ref)
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
 from repro_torch.models.spec import to_device  # noqa: E402
+from repro_torch.optim.adamw import (BLOCK_SCAN_MIN,  # noqa: E402
+                                     AdamWConfig, lr_at)
+from repro_torch.optim.adamw import init as adamw_init  # noqa: E402
 from repro_torch.runtime.serve_loop import (Request, ServeConfig,  # noqa: E402
                                             ServeEngine)
+from repro_torch.runtime.train_loop import TrainConfig, Trainer  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W).  The int32 multiply-add rate
 # is not in the data sheet's table: an SM issues 64 int32 lanes per clock
@@ -1417,6 +1462,716 @@ def phase_wkv_path(dev, rec: dict, errs: dict) -> dict:
     return records
 
 
+
+# ---------------------------------------------------------------------------
+# Training: the flash kernels, full-width rwkv6-3b, the wkv backward
+# ---------------------------------------------------------------------------
+
+# The flash kernels against their plain versions: float32 within atol =
+# rtol = 2e-4, the reference's own band for its flash gradient tests
+# (tests/test_kernel_grads.py).  A bfloat16 output may also round the
+# other way: atol 2e-4 with rtol one bfloat16 step, 2**-7 of the value.
+FLASH_TOL = 2e-4
+FLASH_BF16_RTOL = 2 ** -7
+# (B, S, Hq, Hkv, d, causal): the reference's gradient test shapes
+# (tests/test_kernel_grads.py), then d = 64 and 128.
+FLASH_CASES = ((2, 64, 4, 4, 16, True), (2, 64, 4, 4, 16, False),
+               (1, 64, 8, 2, 16, True), (1, 64, 4, 1, 8, True),
+               (2, 40, 4, 2, 8, True), (1, 96, 2, 2, 16, False),
+               (1, 96, 8, 2, 64, True), (2, 40, 4, 1, 64, False),
+               (1, 96, 4, 2, 128, True), (1, 40, 2, 2, 128, False))
+# glm4-9b's attention at train_4k's length: B = 1, S = 4096, 32 q heads,
+# 2 kv heads of 128, bfloat16, causal.
+GLM4_TRAIN_ATTN = (1, 4096, 32, 2, 128)
+BF16_TC_OPS_PER_S = 989e12    # dense bf16 tensor-core peak
+# Full-width rwkv6-3b training: batch 2 x 256 tokens (train_4k's 4096
+# cut: the model runs its recurrence one token at a time), AdamW with
+# float32 moments, remat on, under CORDIC_EXEC; 3 steps, the second
+# recording layers 0 and 31 for the wkv backward path, the last profiled.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 256, 3
+TRAIN_LAYERS = (0, 31)
+# Reduced models trained on the card against the CPU: float32 sums in
+# another order (forward, backward and the Adam update), 3 steps.
+TRAIN_LOSS_TOL = 1e-4
+# float32 operations of the wkv backward per state element and step:
+# recompute k v and the state's multiply-add (3); S dy for dr, A ⊙ S for
+# dw, A v for dk, Aᵀ k for dv (2 each); the adjoint's r dy and
+# multiply-add (3).
+WKV_BWD_OPS_PER_ELEMENT = 14
+
+
+def flash_inputs(gen, b, s, hq, hkv, d, dtype, dev):
+    """q, k, v, dO on the public (B, S, H, d) layout."""
+    q = torch.randn((b, s, hq, d), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    do = torch.randn((b, s, hq, d), generator=gen, device=dev).to(dtype)
+    return q, k, v, do
+
+
+def live_pairs(sq: int, sk: int, causal: bool) -> int:
+    """(q, k) pairs the kernels' top-left causal mask keeps."""
+    if not causal:
+        return sq * sk
+    return sum(min(i + 1, sk) for i in range(sq))
+
+
+def flash_bound(q, k, v, causal: bool, backward: bool) -> tuple:
+    """(bytes ms, operations ms) of the forward (q, k, v in; out and lse
+    out: 2 matmuls, 4 flops per live pair and channel) or the backward
+    (q, k, v, dO, lse, delta in; dq, dk, dv out: Q Kᵀ, dO Vᵀ, dS K, dSᵀ Q
+    and Pᵀ dO, 10 flops per live pair and channel), at the bf16
+    tensor-core peak."""
+    b, sq, hq, d = q.shape
+    sk = k.shape[1]
+    io = sum(t.numel() * t.element_size() for t in (q, k, v))
+    rows = b * hq * sq * 4                       # one float32 per q row
+    if backward:
+        moved = io + q.numel() * q.element_size() + 2 * rows + \
+            4 * (q.numel() + k.numel() + v.numel())
+        flops = 10
+    else:
+        moved = io + q.numel() * q.element_size() + rows
+        flops = 4
+    ops = flops * b * hq * live_pairs(sq, sk, causal) * d
+    return moved / HBM_BYTES_PER_S * 1e3, ops / BF16_TC_OPS_PER_S * 1e3
+
+
+def close(got, want, what: str, tol: float, errs: list,
+          rtol: Optional[float] = None) -> None:
+    """|got - want| <= tol + rtol |want| everywhere (rtol defaults to
+    tol)."""
+    rtol = tol if rtol is None else rtol
+    torch.cuda.synchronize()
+    g, w_ = got.float(), want.float()
+    if g.shape != w_.shape or not torch.isfinite(g).all():
+        raise AssertionError(f"{what}: shape {tuple(g.shape)} or values not "
+                             f"finite")
+    diff = (g - w_).abs()
+    errs.append(diff.max().item())
+    bad = int((diff > tol + rtol * w_.abs()).sum())
+    if bad:
+        raise AssertionError(f"{what}: {bad} of {g.numel()} beyond atol = "
+                             f"{tol:g}, rtol = {rtol:g}; largest |diff| "
+                             f"{diff.max().item():.3e}")
+
+
+def flash_raw_check(q, k, v, do, causal: bool, what: str, errs: dict
+                    ) -> None:
+    """Kernels 4 and 6 on the raw layout against their plain versions on
+    the same inputs (the backward on the plain forward's lse and delta)."""
+    group = q.shape[2] // k.shape[2]
+    raw = [fa_ops._to_hsd(x) for x in (q, k, v, do)]
+    rtol_out = FLASH_TOL if q.dtype == torch.float32 else FLASH_BF16_RTOL
+    out, lse = flash_kernel.flash_attention_nhd_cuda(
+        *raw[:3], causal=causal, group=group, return_residuals=True)
+    w_out, w_lse = flash_fwd_ref(*raw[:3], causal=causal, group=group)
+    close(out, w_out, f"flash forward {what}", FLASH_TOL, errs["fwd"],
+          rtol=rtol_out)
+    close(lse, w_lse, f"flash lse {what}", FLASH_TOL, errs["fwd"])
+    delta = (raw[3].float() * w_out.float()).sum(-1)
+    got = flash_kernel.flash_attention_bwd_nhd_cuda(
+        *raw, w_lse, delta, causal=causal, group=group)
+    want = flash_bwd_ref(*raw, w_lse, delta, causal=causal, group=group)
+    for name, a, b_ in zip(("dq", "dk", "dv"), got, want):
+        close(a, b_, f"flash {name} {what}", FLASH_TOL, errs["bwd"])
+
+
+def flash_grad_check(q, k, v, do, causal: bool, what: str, errs: dict):
+    """The ops-level gradient (kernels 4 and 6 through autograd) against
+    the exact attention VJP (Sq == Sk: the two causal masks agree)."""
+    args = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    got = torch.autograd.grad(flash_attention(*args, causal=causal), args, do)
+    ref = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    want = torch.autograd.grad(fa_ops.exact_attention(*ref, causal=causal),
+                               ref, do)
+    for name, a, b_ in zip(("dq", "dk", "dv"), got, want):
+        close(a, b_, f"flash ops gradient {name} {what}", FLASH_TOL,
+              errs["grad"])
+
+
+def phase_flash(dev) -> dict:
+    """Kernels 4 and 6: the path at glm4-9b's training layout, then each
+    kernel against its plain version, then times."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    b, s, hq, hkv, d = GLM4_TRAIN_ATTN
+    q, k, v, do = flash_inputs(gen, b, s, hq, hkv, d, torch.bfloat16, dev)
+    args = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    common.reset_counts()
+    out = flash_attention(*args, causal=True)
+    grads = torch.autograd.grad(out, args, do)
+    torch.cuda.synchronize()
+    counts = {n: (common.get_kernel(n).launches,
+                  common.get_kernel(n).plain_calls)
+              for n in ("flash_attention", "flash_attention_bwd")}
+    log(f"[flash] repro_torch.kernels.flash_attention forward and backward "
+        f"at glm4-9b's training layout (B, S, Hq, Hkv, d) = "
+        f"{GLM4_TRAIN_ATTN}, bf16, causal: (launches, plain calls) {counts}")
+    if any(c != (1, 0) for c in counts.values()):
+        raise AssertionError(f"flash path: expected one launch of each "
+                             f"kernel and no plain call, got {counts}")
+    if not all(torch.isfinite(g.float()).all() for g in (out, *grads)):
+        raise AssertionError("flash path: values not finite")
+    del out, grads, args
+
+    errs = {"fwd": [], "bwd": [], "grad": []}
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in FLASH_CASES:
+            *shape, causal = case
+            what = f"{tuple(shape)} causal={causal} {str(dtype)[6:]}"
+            x = flash_inputs(gen, *shape, dtype, dev)
+            flash_raw_check(*x, causal, what, errs)
+            if dtype == torch.float32:
+                flash_grad_check(*x, causal, what, errs)
+    flash_raw_check(q, k, v, do, True, f"glm4-9b layout {GLM4_TRAIN_ATTN} "
+                    f"bf16 causal", errs)
+    x32 = [t.float() for t in (q, k, v, do)]
+    flash_grad_check(*x32, True, f"glm4-9b layout {GLM4_TRAIN_ATTN} "
+                     f"float32 causal", errs)
+    del x32
+    torch.cuda.empty_cache()
+    log(f"[flash] kernels 4 and 6 within atol = rtol = {FLASH_TOL} of their "
+        f"plain versions (bf16 outputs: atol {FLASH_TOL}, rtol one bf16 step "
+        f"{FLASH_BF16_RTOL}) at "
+        f"{len(FLASH_CASES)} shapes x float32/bf16 and glm4-9b's layout, and "
+        f"the ops-level gradient within it of the exact attention VJP; "
+        f"largest |diff|: forward {max(errs['fwd']):.3e}, backward "
+        f"{max(errs['bwd']):.3e}, ops gradient {max(errs['grad']):.3e}")
+
+    group = hq // hkv
+    raw = [fa_ops._to_hsd(x) for x in (q, k, v, do)]
+    o_raw, lse = flash_kernel.flash_attention_nhd_cuda(
+        *raw[:3], group=group, return_residuals=True)
+    delta = (raw[3].float() * o_raw.float()).sum(-1)
+
+    def fwd_kernel():
+        return flash_kernel.flash_attention_nhd_cuda(
+            *raw[:3], group=group, return_residuals=True)
+
+    def bwd_kernel():
+        return flash_kernel.flash_attention_bwd_nhd_cuda(
+            *raw, lse, delta, group=group)
+
+    def sdpa_fwd():
+        return torch.nn.functional.scaled_dot_product_attention(
+            *(t.transpose(1, 2) for t in (q, k, v)), is_causal=True,
+            enable_gqa=True)
+
+    lq, lk, lv = (t.detach().transpose(1, 2).requires_grad_(True)
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa_fwd_bwd():
+        o = torch.nn.functional.scaled_dot_product_attention(
+            lq, lk, lv, is_causal=True, enable_gqa=True)
+        return torch.autograd.grad(o, (lq, lk, lv), dot)
+
+    times = {"fwd": time_ms(lambda: fwd_kernel(), [()], reps=5),
+             "bwd": time_ms(lambda: bwd_kernel(), [()], reps=5),
+             "plain_fwd": time_ms(lambda: flash_fwd_ref(
+                 *raw[:3], group=group), [()], reps=2),
+             "plain_bwd": time_ms(lambda: flash_bwd_ref(
+                 *raw, lse, delta, group=group), [()], reps=2),
+             "sdpa_fwd": time_ms(sdpa_fwd, [()], reps=10),
+             "sdpa_fwd_bwd": time_ms(sdpa_fwd_bwd, [()], reps=10)}
+    sdpa_bwd = times["sdpa_fwd_bwd"] - times["sdpa_fwd"]
+    records = {}
+    for name, key, backward, lib in (
+            ("flash_attention", "fwd", False, times["sdpa_fwd"]),
+            ("flash_attention_bwd", "bwd", True, sdpa_bwd)):
+        t_b, t_o = flash_bound(q, k, v, True, backward)
+        bnd, by = larger(t_b, t_o)
+        log(f"  {name} at {GLM4_TRAIN_ATTN} bf16 causal: kernel "
+            f"{times[key]:.3f} ms, plain {times['plain_' + key]:.3f} ms, "
+            f"bound {bnd:.4f} ms ({by}), kernel/bound {times[key] / bnd:.1f}; "
+            f"library (scaled_dot_product_attention, is_causal, enable_gqa) "
+            f"{lib:.3f} ms" + (f" (forward+backward {times['sdpa_fwd_bwd']:.3f}"
+                               f" less forward {times['sdpa_fwd']:.3f})"
+                               if backward else ""))
+        records[name] = {
+            "launches": counts[name][0], "ms": times[key],
+            "plain_ms": times["plain_" + key], "bound_ms": bnd,
+            "bound_by": by, "library_ms": lib,
+            "max_abs_err": max(errs["bwd" if backward else "fwd"]),
+            "work": f"glm4-9b's causal attention at train_4k's length, "
+                    f"(B, S, Hq, Hkv, d) = {GLM4_TRAIN_ATTN} bf16; library: "
+                    f"scaled_dot_product_attention"
+                    + (" forward+backward less forward" if backward else "")}
+    return records
+
+
+@contextlib.contextmanager
+def record_train_wkv(store: dict, n_layers: int, keep: tuple):
+    """During one training step, record for the layers in ``keep`` the
+    r, k, v, w, u the model's recurrence takes and the gradient arriving
+    at its output (a tensor hook).  Under remat the block's first forward
+    builds the graph the backward runs; its recomputation calls the
+    recurrence again, after the first ``n_layers`` calls: not recorded."""
+    steps = ssm.wkv_steps
+    calls = [0]
+
+    def rec_steps(r, k, v, w, u, S):
+        out, s_new = steps(r, k, v, w, u, S)
+        layer = calls[0]
+        calls[0] += 1
+        if layer < n_layers and layer in keep and out.requires_grad:
+            entry = {"r": r.detach().clone(), "k": k.detach().clone(),
+                     "v": v.detach().clone(), "w": w.detach().clone(),
+                     "u": u.detach().clone(), "out": out.detach().clone()}
+            store[layer] = entry
+            out.register_hook(lambda g, e=entry: e.__setitem__(
+                "dy", g.detach().clone()))
+        return out, s_new
+
+    ssm.wkv_steps = rec_steps
+    try:
+        yield store
+    finally:
+        ssm.wkv_steps = steps
+
+
+def train_profile(prof, wall_ms: float) -> None:
+    """Device busy time, idle share and device kernels of one profiled
+    training step, read from the trace's raw events (a step launches
+    ~10**6 kernels: building the profiler's per-event summary would take
+    minutes)."""
+    busy_ns, count, by_name = 0, 0, {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        busy_ns += e.duration_ns()
+        count += 1
+        t, n = by_name.get(e.name(), (0, 0))
+        by_name[e.name()] = (t + e.duration_ns(), n + 1)
+    busy = busy_ns / 1e6
+    if not busy:
+        log("[profile] the trace holds no device time: not measured")
+        return
+    log(f"[profile] one training step: wall {wall_ms:.1f} ms, device busy "
+        f"{busy:.1f} ms, idle share {1 - busy / wall_ms:.3f}, {count} device "
+        f"kernels")
+    for key, (t, n) in sorted(by_name.items(), key=lambda k: -k[1][0])[:8]:
+        log(f"  {t / 1e6:9.2f} ms {t / busy_ns:6.1%} x{n:6d}  {key[:90]}")
+
+
+def copy_tree(tree, device):
+    """A copy of a parameter tree on ``device`` (never sharing storage)."""
+    return {k: (copy_tree(v, device) if isinstance(v, dict) else
+                v.to(device, copy=True)) for k, v in tree.items()}
+
+
+def leaf_paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        for key in tree:
+            yield from leaf_paths(tree[key], prefix + (key,))
+    else:
+        yield prefix, tree
+
+
+def moments_explain_unchanged(p, m, v, step, ocfg) -> bool:
+    """Whether a parameter leaf that did not move was left where it was by
+    rounding, not by a missing update: its first moment holds a gradient,
+    and the last step's AdamW update, recomputed from the final float32
+    moments as ``adamw._update_block`` makes it, rounds back to the same
+    words in the leaf's dtype."""
+    if not bool((m != 0).any()):
+        return False
+    stepf = step.to(torch.float32)
+    c1 = 1.0 - torch.pow(torch.full_like(stepf, ocfg.beta1), stepf)
+    c2 = 1.0 - torch.pow(torch.full_like(stepf, ocfg.beta2), stepf)
+    p32 = p.to(torch.float32)
+    delta = (m / c1) / (torch.sqrt(v / c2) + ocfg.eps)
+    if p.dim() >= 2:
+        delta = delta + ocfg.weight_decay * p32
+    return torch.equal((p32 - lr_at(ocfg, step) * delta).to(p.dtype), p)
+
+
+@torch.no_grad()
+def check_leaves_moved(before: dict, params, opt, ocfg) -> None:
+    """Every parameter leaf moved, compared whole against its copy from
+    before the run.  A leaf that did not move passes only where the final
+    moments show its last update is below the rounding of its dtype; the
+    leaves that take AdamW's block-wise update (>= BLOCK_SCAN_MIN
+    elements, three or more axes) must move, and are named."""
+    moved, rounded, blockwise = [], [], []
+    m_leaves, v_leaves = dict(leaf_paths(opt.m)), dict(leaf_paths(opt.v))
+    for path, leaf in leaf_paths(params):
+        name = "/".join(map(str, path))
+        if leaf.dim() >= 3 and leaf.numel() >= BLOCK_SCAN_MIN:
+            blockwise.append(name)
+        if not torch.equal(before[path].to(leaf.device), leaf):
+            moved.append(name)
+        elif name not in blockwise and moments_explain_unchanged(
+                leaf, m_leaves[path], v_leaves[path], opt.step, ocfg):
+            rounded.append(name)
+        else:
+            raise AssertionError(
+                f"rwkv6 train: parameter leaf {name} {tuple(leaf.shape)} did "
+                f"not move" + (" (the block-wise AdamW update)"
+                               if name in blockwise else
+                               " and its moments do not explain it"))
+    if not blockwise:
+        raise AssertionError("rwkv6 train: no leaf took the block-wise AdamW "
+                             "update")
+    log(f"[rwkv6 train] {len(moved)} of {len(before)} parameter leaves moved, "
+        f"the block-wise AdamW update's {blockwise} among them; "
+        f"{len(rounded)} below the rounding of bf16 in the last step "
+        f"(first moment nonzero, update recomputed from the final moments "
+        f"rounds to the same words): {rounded}")
+
+
+def phase_rwkv_train(dev, smi: str) -> dict:
+    """Full-width rwkv6-3b trained under CORDIC_EXEC, as
+    ``launch/train.py --cordic --batch 2 --seq 256 --steps 4`` builds it;
+    then the reduced rwkv6 and glm4 trained on the card against the CPU,
+    and a fault_at restart."""
+    cfg = get_arch("rwkv6-3b")
+    got = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.head_dim_, cfg.d_ff,
+           cfg.vocab_size, cfg.dtype)
+    if got != RWKV_FULL_WIDTH or not cfg.remat:
+        raise AssertionError(f"rwkv6-3b is not at full width with remat: "
+                             f"{got}, remat={cfg.remat}")
+    model = build_model(cfg, dev)
+    shape = dataclasses.replace(LM_SHAPES["train_4k"], seq_len=TRAIN_SEQ,
+                                global_batch=TRAIN_BATCH)
+    tcfg = TrainConfig(optimizer=AdamWConfig(
+        total_steps=TRAIN_STEPS, warmup_steps=max(TRAIN_STEPS // 20, 1)),
+        log_every=1)
+    trainer = Trainer(model, tcfg, stream_for_model(model, shape, seed=0),
+                      pol=CORDIC_EXEC)
+    before, times, recorded, last = {}, [], {}, {}
+    init_state = trainer.init_state
+
+    def init_and_keep(seed=0):
+        state = init_state(seed)
+        for path, leaf in leaf_paths(state[0]):      # host copies, whole
+            before[path] = leaf.to("cpu", copy=True)
+        return state
+
+    inner = trainer.step_fn
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+
+    def step(*args):
+        i = len(times)
+        rec = (record_train_wkv(recorded, cfg.n_layers, TRAIN_LAYERS)
+               if i == 1 else contextlib.nullcontext())
+        prof = (torch.profiler.profile(activities=acts)
+                if i == TRAIN_STEPS - 1 else None)
+        torch.cuda.synchronize()
+        with rec, (prof or contextlib.nullcontext()):
+            t0 = time.monotonic()
+            out = inner(*args)
+            torch.cuda.synchronize()
+            times.append(time.monotonic() - t0)
+        if prof is not None:
+            train_profile(prof, times[-1] * 1e3)
+        last["opt"] = out[1]
+        return out
+
+    trainer.init_state, trainer.step_fn = init_and_keep, step
+    torch.cuda.reset_peak_memory_stats()
+    common.reset_counts()
+    out = trainer.run(TRAIN_STEPS, seed=0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    plain = {n: s.plain_calls for n in common.registered_kernels()
+             for s in [common.get_kernel(n)] if s.plain_calls}
+    launches = {n: s.launches for n in common.registered_kernels()
+                for s in [common.get_kernel(n)] if s.launches}
+    metrics = trainer.metrics_log
+    log(f"[rwkv6 train] full-width rwkv6-3b ({model.n_params():,} params), "
+        f"CORDIC_EXEC, batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens, AdamW float32 "
+        f"moments, remat: losses "
+        f"{[round(m['loss'], 4) for m in metrics]}, grad norms "
+        f"{[round(m['grad_norm'], 4) for m in metrics]}; kernel launches "
+        f"{launches}, plain-version calls {plain}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = times[1:-1] or times[:1]
+    log(f"[rwkv6 train] step times (s) {[round(t, 2) for t in times]} (the "
+        f"second recording, the last profiled); "
+        f"{tokens / (sum(steady) / len(steady)):.1f} tokens/s over the steps "
+        f"between the first and the last; peak allocated "
+        f"{peak:.2f} GB; {smi}")
+    if len(metrics) != TRAIN_STEPS or not all(
+            math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+            for m in metrics):
+        raise AssertionError("rwkv6 train: a loss or grad norm is not finite")
+    if plain:
+        raise AssertionError(f"rwkv6 train: plain-version calls {plain}")
+    check_leaves_moved(before, out["params"], last["opt"], tcfg.optimizer)
+    if set(recorded) != set(TRAIN_LAYERS) or not all(
+            "dy" in e for e in recorded.values()):
+        raise AssertionError(f"rwkv6 train: recorded layers "
+                             f"{sorted(recorded)} without their gradients")
+    del out, trainer, model, before, last
+    torch.cuda.empty_cache()
+
+    # reduced models: the card against the CPU, 3 steps, float32
+    small = dataclasses.replace(shape, seq_len=16)
+    for arch in ("rwkv6-3b", "glm4-9b"):
+        for pol_name, pol in (("float32 matmuls", None),
+                              ("CORDIC_EXEC", CORDIC_EXEC)):
+            base = get_arch(arch).reduced().scaled(dtype="float32")
+            init = build_model(base, "cpu").init(seed=0)
+            losses = {}
+            for where in ("cpu", dev):
+                m = build_model(base, where)
+                tr = Trainer(m, TrainConfig(optimizer=AdamWConfig(
+                    lr=1e-3, warmup_steps=1, total_steps=3), log_every=1),
+                    stream_for_model(m, small, seed=1), pol=pol)
+                tr.init_state = (lambda seed=0, m=m, tr=tr: (
+                    copy_tree(init, m.device),
+                    adamw_init(tr.tcfg.optimizer, copy_tree(init, m.device)),
+                    torch.zeros((), device=m.device)))
+                losses[str(where)] = [l for _, l in tr.run(3)["losses"]]
+            a, b_ = losses["cpu"], losses[str(dev)]
+            err = max(abs(x - y) for x, y in zip(a, b_))
+            log(f"[train reference] reduced {arch}, {pol_name}: card losses "
+                f"{[round(x, 6) for x in b_]}, CPU {[round(x, 6) for x in a]}, "
+                f"largest |diff| {err:.2e} (tolerance {TRAIN_LOSS_TOL})")
+            if len(a) != 3 or err > TRAIN_LOSS_TOL:
+                raise AssertionError(f"reduced {arch} ({pol_name}): card and "
+                                     f"CPU losses disagree")
+
+    # fault_at: a restart from the checkpoint of step 1 resumes on the
+    # uninterrupted run's losses
+    base = get_arch("rwkv6-3b").reduced()
+    m = build_model(base, dev)
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    try:
+        def trainer_at(directory):
+            return Trainer(m, TrainConfig(
+                optimizer=AdamWConfig(warmup_steps=1, total_steps=4),
+                log_every=1, ckpt_every=1,
+                ckpt_dir=None if directory is None else str(directory)),
+                stream_for_model(m, small, seed=2), pol=CORDIC_EXEC)
+        whole = dict(trainer_at(None).run(4)["losses"])
+        try:
+            trainer_at(ckpt_dir).run(4, fault_at=1)
+            raise AssertionError("fault_at did not raise")
+        except RuntimeError as e:
+            if "injected fault" not in str(e):
+                raise
+        resumed = dict(trainer_at(ckpt_dir).run(4)["losses"])
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    log(f"[train reference] reduced rwkv6-3b under CORDIC_EXEC, bf16: fault "
+        f"at step 1, resumed losses {resumed} against the uninterrupted "
+        f"run's {whole}")
+    if sorted(resumed) != [2, 3] or any(resumed[s] != whole[s]
+                                        for s in resumed):
+        raise AssertionError("the resumed run's losses differ from the "
+                             "uninterrupted run's")
+    return {"recorded": recorded, "step_s": times, "peak_gb": peak}
+
+
+def adjoint_magnitude(r, k, v, w, u, dy) -> tuple:
+    """M of each gradient output: the plain backward run on |inputs| (w >
+    0, so every term adds), the sum of its terms' magnitudes."""
+    bt = common.largest_divisor(r.shape[1], wkv_ops.bwd_block_cap(
+        r.shape[-1]))
+    args = (r.float().abs(), k.float().abs(), v.float().abs(), w.float(),
+            u.float().abs())
+    _, ckpt = wkv_recurrence_ref(*args, block_t=bt, return_residuals=True)
+    return wkv_recurrence_bwd_ref(*args, dy.float().abs(), ckpt, block_t=bt)
+
+
+def grad_close(got, want, mag, what: str, errs: list) -> float:
+    """Within (2 dk + 2 T + 8) eps M per output: each output sums at most
+    2 dk products in its own order in each version, and the state and the
+    adjoint each carry one rounding per step over T steps; a bfloat16
+    gradient may also round the other way (rtol 2**-7).  Returns the
+    largest |diff| / (eps M) of a float32 gradient, else 0."""
+    torch.cuda.synchronize()
+    g, w_ = got.float(), want.float()
+    if g.shape != w_.shape or not torch.isfinite(g).all():
+        raise AssertionError(f"{what}: shape {tuple(g.shape)} or values not "
+                             f"finite")
+    diff = (g - w_).abs()
+    f32 = got.dtype == torch.float32 and want.dtype == torch.float32
+    if f32:
+        errs.append(diff.max().item())
+    ulps = 2 * mag[0].shape[-1] + 2 * mag[1] + 8
+    bar = ulps * F32_EPS * mag[0]
+    if not f32:
+        bar = bar + 2 ** -7 * w_.abs()
+    bad = int((diff > bar).sum())
+    if bad:
+        raise AssertionError(f"{what}: {bad} of {g.numel()} beyond {ulps} "
+                             f"eps M; largest |diff| {diff.max().item():.3e}")
+    if not f32:
+        return 0.0
+    return (diff / (F32_EPS * mag[0])).nan_to_num(0.0).max().item()
+
+
+def phase_wkv_bwd_path(dev, rec: dict, wkv_record: dict) -> dict:
+    """wkv forward (with checkpoints) and fused backward through
+    ``repro_torch.kernels.wkv`` under autograd on the training step's
+    recorded tensors; against the plain versions and the model's own
+    autograd gradients; times and bounds."""
+    layers = sorted(rec)
+    common.reset_counts()
+    grads = {}
+    for i in layers:
+        e = rec[i]
+        args = [e[x].detach().clone().requires_grad_(True)
+                for x in ("r", "k", "v", "w", "u")]
+        out = wkv(*args)
+        grads[i] = (out.detach(), torch.autograd.grad(out, args, e["dy"]))
+    torch.cuda.synchronize()
+    counts = {n: (common.get_kernel(n).launches,
+                  common.get_kernel(n).plain_calls)
+              for n in ("wkv", "wkv_bwd")}
+    shape = tuple(rec[layers[0]]["r"].shape)
+    log(f"[wkv bwd path] repro_torch.kernels.wkv forward and backward on the "
+        f"training step's recorded (B, T, H, d) = {shape}, layers {layers}: "
+        f"(launches, plain calls) {counts}")
+    if any(c != (len(layers), 0) for c in counts.values()):
+        raise AssertionError(f"wkv backward path: expected {len(layers)} "
+                             f"launches of each kernel, no plain call")
+    errs, readings = [], {"plain": [], "model": []}
+    names = ("dr", "dk", "dv", "dw", "du")
+    for i in layers:
+        e = rec[i]
+        b, t, h, d = e["r"].shape
+        # the same values in float32, so every gradient comes out in float32
+        e32 = {x: e[x].float() for x in ("r", "k", "v", "w", "u")}
+        raw = [flat(e32[x]) for x in ("r", "k", "v", "w")]
+        raw.append(e32["u"][None].expand(b, h, d).reshape(b * h, d)
+                   .contiguous())
+        dy = flat(e["dy"])
+        bt = common.largest_divisor(t, wkv_ops.bwd_block_cap(d))
+        # checkpoints: the kernel's and the plain version's, word for word
+        _, ckpt = wkv_kernel.wkv_recurrence_cuda(*raw, block_t=bt,
+                                                 return_residuals=True)
+        _, w_ckpt = wkv_recurrence_ref(*raw, block_t=bt,
+                                       return_residuals=True)
+        if not torch.equal(ckpt, w_ckpt):
+            raise AssertionError(f"wkv checkpoints, layer {i}: "
+                                 f"{int((ckpt != w_ckpt).sum())} words differ")
+        got = wkv_kernel.wkv_recurrence_bwd_cuda(*raw, dy, ckpt, block_t=bt)
+        want = wkv_recurrence_bwd_ref(*raw, dy, w_ckpt, block_t=bt)
+        mags = adjoint_magnitude(*raw, dy)
+        for n, a, b_, mg in zip(names, got, want, mags):
+            readings["plain"].append(grad_close(
+                a, b_, (mg, t), f"wkv {n}, layer {i}, against the plain "
+                f"version", errs))
+        # the ops gradient against the model's own autograd gradients
+        mag_model = [flat_back(mg, b, h) for mg in mags[:4]] + [
+            mags[4].reshape(b, h, d).sum(0)]
+        args = [e32[x].clone().requires_grad_(True)
+                for x in ("r", "k", "v", "w", "u")]
+        ops_g = torch.autograd.grad(wkv(*args), args, e["dy"])
+        args = [e32[x].clone().requires_grad_(True)
+                for x in ("r", "k", "v", "w", "u")]
+        with torch.enable_grad():
+            out, _ = ssm.wkv_steps(*args, torch.zeros((b, h, d, d),
+                                                      device=dev))
+            model_g = torch.autograd.grad(out, args, e["dy"])
+        for n, a, b_, mg in zip(names, ops_g, model_g, mag_model):
+            readings["model"].append(grad_close(
+                a, b_, (mg, t), f"wkv {n}, layer {i}, ops gradient against "
+                f"the model's own autograd", errs))
+        # the path's gradients, in the recorded tensors' dtypes: its output
+        # is in r's dtype, so autograd rounded dy to that dtype first
+        args = [e32[x].clone().requires_grad_(True)
+                for x in ("r", "k", "v", "w", "u")]
+        dy_path = e["dy"].to(grads[i][0].dtype).float()
+        seen = torch.autograd.grad(wkv(*args), args, dy_path)
+        for n, c, a, mg in zip(names, grads[i][1], seen, mag_model):
+            grad_close(c, a, (mg, t), f"wkv {n}, layer {i}, the path's "
+                       f"{str(c.dtype)[6:]} gradient", errs)
+        y_close(grads[i][0], out.detach(), f"layer {i} y against the model's "
+                f"recurrence", [], wkv_magnitude(
+                    wkv_recurrence_ref, *raw).reshape(b, h, t, d)
+                .transpose(1, 2))
+    log(f"[wkv bwd path] checkpoints equal to the plain version's; every "
+        f"gradient within (2 dk + 2 T + 8) eps M per output of the plain "
+        f"adjoint sweep (largest {max(readings['plain']):.2f} eps M) and of "
+        f"the model's own autograd gradients (largest "
+        f"{max(readings['model']):.2f} eps M), the path's bf16 gradients "
+        f"within one bf16 step more; largest |diff| {max(errs):.3e}")
+
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+    for i in layers:
+        e = rec[i]
+        b, t, h, d = e["r"].shape
+        raw = [flat(e[x]) for x in ("r", "k", "v", "w")]
+        raw.append(e["u"][None].expand(b, h, d).reshape(b * h, d)
+                   .contiguous())
+        dy = flat(e["dy"])
+        bt = common.largest_divisor(t, wkv_ops.bwd_block_cap(d))
+        _, ckpt = wkv_kernel.wkv_recurrence_cuda(*raw, block_t=bt,
+                                                 return_residuals=True)
+        ms, plain_ms, t_b, t_o = time_wkv_bwd(raw, dy, ckpt, bt)
+        log(f"  wkv_bwd layer {i} (B, T, H, d) = {(b, t, h, d)}, block_t "
+            f"{bt}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+            f"{max(t_b, t_o):.5f} ms ({'bytes' if t_b >= t_o else 'operations'}"
+            f"), kernel/bound {ms / max(t_b, t_o):.1f}")
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bytes", t_b),
+                         ("ops", t_o)):
+            tot[key] += val
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    raw = wkv_inputs(gen, 1, 4096, 40, 64, torch.bfloat16, dev)
+    raw = (*raw[:3], raw[3].float(), raw[4])
+    dy = torch.randn(raw[2].shape, generator=gen, device=dev).to(
+        torch.bfloat16)
+    bt = common.largest_divisor(4096, wkv_ops.bwd_block_cap(64))
+    _, ckpt = wkv_kernel.wkv_recurrence_cuda(*raw, block_t=bt,
+                                             return_residuals=True)
+    ms, plain_ms, t_b, t_o = time_wkv_bwd(raw, dy, ckpt, bt, plain_reps=1)
+    log(f"  [context only, not the training path] wkv_bwd on one layer of a "
+        f"4096-token sequence, (B, T, H, d) = (1, 4096, 40, 64): kernel "
+        f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {max(t_b, t_o):.5f} ms, "
+        f"kernel/bound {ms / max(t_b, t_o):.0f}")
+    bnd, by = larger(tot["bytes"], tot["ops"])
+    wkv_record["work"] += (f"; the wkv backward path (phase 15) launched it "
+                           f"{counts['wkv'][0]} more times with checkpoints")
+    return {"wkv_bwd": {
+        "launches": counts["wkv_bwd"][0], "ms": tot["ms"],
+        "plain_ms": tot["plain_ms"], "bound_ms": bnd, "bound_by": by,
+        "max_abs_err": max(errs), "library_ms": None,
+        "work": f"the wkv backward on rwkv6-3b's training step, layers "
+                f"{layers}: (B, T, H, d) = {shape}, block_t "
+                f"{common.largest_divisor(shape[1], wkv_ops.bwd_block_cap(shape[3]))}"}}
+
+
+def flat_back(x: torch.Tensor, b: int, h: int) -> torch.Tensor:
+    """The raw (B*H, T, d) layout back to (B, T, H, d)."""
+    bh, t, d = x.shape
+    return x.reshape(b, h, t, d).transpose(1, 2)
+
+
+def wkv_bwd_bound(raw, dy, ckpt) -> tuple:
+    """(bytes ms, operations ms) of one wkv backward: r, k, v, w, u, dy
+    and the checkpoints read once, dr, dk, dv, dw (float32) and du
+    written once; WKV_BWD_OPS_PER_ELEMENT float32 operations per state
+    element and step, plus the per-row terms of each step (v·dy, Σ r u k,
+    and the u k vdy, r u vdy, r k vdy products and sums)."""
+    r = raw[0]
+    bh, t, dk = r.shape
+    dv = raw[2].shape[-1]
+    moved = sum(x.numel() * x.element_size() for x in (*raw, dy, ckpt))
+    moved += 4 * (3 * bh * t * dk + bh * t * dv + bh * dk)
+    ops = bh * t * (WKV_BWD_OPS_PER_ELEMENT * dk * dv + 12 * dk + 4 * dv)
+    return moved / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+
+
+def time_wkv_bwd(raw, dy, ckpt, bt, plain_reps: int = 2) -> tuple:
+    def kernel():
+        return wkv_kernel.wkv_recurrence_bwd_cuda(*raw, dy, ckpt, block_t=bt)
+
+    def plain():
+        return wkv_recurrence_bwd_ref(*raw, dy, ckpt, block_t=bt)
+
+    ms = time_ms(kernel, [()], reps=10)
+    plain_ms = time_ms(plain, [()], reps=plain_reps)
+    return (ms, plain_ms, *wkv_bwd_bound(raw, dy, ckpt))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
@@ -1431,7 +2186,10 @@ def main() -> int:
     libraries = {"cordic_mac": mac_kernel.library,
                  "cordic_act": act_kernel.library,
                  "cordic_softmax": sm_kernel.library,
-                 "wkv": wkv_kernel.library}
+                 "wkv": wkv_kernel.library,
+                 "wkv_bwd": wkv_kernel.bwd_library,
+                 "flash_fwd": flash_kernel.fwd_library,
+                 "flash_bwd": flash_kernel.bwd_library}
     t0 = time.monotonic()
     with concurrent.futures.ThreadPoolExecutor(len(libraries)) as pool:
         futures = {n: pool.submit(f) for n, f in libraries.items()}
@@ -1466,6 +2224,12 @@ def main() -> int:
     rwkv = phase("rwkv6 serve", phase_rwkv_serve, dev, smi)
     wkv_records = phase("wkv path", phase_wkv_path, dev,
                         rwkv.pop("recorded"), wkv_errs)
+    torch.cuda.empty_cache()
+    flash_records = phase("flash", phase_flash, dev)
+    torch.cuda.empty_cache()
+    trained = phase("rwkv6 train", phase_rwkv_train, dev, smi)
+    bwd_records = phase("wkv backward path", phase_wkv_bwd_path, dev,
+                        trained.pop("recorded"), wkv_records["wkv"])
 
     # the record's work: one decode forward call, the 281 launches at
     # M = max_batch = 4; its bound is the larger of all their bytes over
@@ -1494,11 +2258,12 @@ def main() -> int:
                 f"per forward call)",
     }
     records = [record]
-    for name, rec in {**davinci, **wkv_records}.items():
+    for name, rec in {**davinci, **wkv_records, **flash_records,
+                      **bwd_records}.items():
         spec = common.get_kernel(name)
         records.append({"name": name, "route": "cuda", "source": spec.source,
-                        "replaces": spec.replaces, **rec,
-                        "library_ms": None})
+                        "replaces": spec.replaces, "library_ms": None,
+                        **rec})
     log(smi)
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {

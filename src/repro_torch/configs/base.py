@@ -2,28 +2,20 @@
 
 Every architecture is an :class:`ArchConfig`; the paper's technique
 enters through :class:`ExecutionPolicy` (CORDIC matmul path, DA-VINCI
-AFs, CAESAR pruning), which every layer consults.  ``CordicPolicy`` and
-``QuantPolicy`` come from the modules that consume them
-(``core/activations``, ``core/quantization``); ``PruningPolicy`` is a
-local copy, fields and defaults only, until ``core/pruning`` is ported
-with training (serving never prunes).
+AFs, CAESAR pruning), which every layer consults.  ``CordicPolicy``,
+``QuantPolicy`` and ``PruningPolicy`` come from the modules that consume
+them (``core/activations``, ``core/quantization``, ``core/pruning``).
+:class:`ShapeConfig` and ``LM_SHAPES`` are the reference's input-shape
+cells (``train_4k`` is the training launcher's default).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 from repro_torch.core.activations import CordicPolicy
+from repro_torch.core.pruning import PruningPolicy
 from repro_torch.core.quantization import QuantPolicy
-
-
-@dataclasses.dataclass(frozen=True)
-class PruningPolicy:
-    """Sparsity configuration consumed by CAESAR."""
-
-    rate: float = 0.40
-    n: Optional[int] = None
-    m: Optional[int] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,3 +193,25 @@ class ArchConfig:
         kw["attn_chunk"] = 16
         kw["remat"] = False
         return self.scaled(**kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell (the assigned shape set)."""
+
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+LM_SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}

@@ -29,6 +29,10 @@ rounded float32 operation at a time:
   (odd degree 13 over even degree 6 in x, Eigen's fast float tanh) with
   its Horner steps fused, ``x`` itself below 0.0004 and +-1 from 20 up.
 
+Differentiated, ``exp`` and ``tanh`` take JAX's rules at their own
+result, ``g * exp(x)`` and ``g * (1 - tanh(x)**2)``, as the reference's
+``jnp.exp`` and ``jnp.tanh`` do, not the derivative of the polynomial.
+
 :func:`fma` is the fused multiply-add itself, for the model code whose
 multiply and add the reference's compiler contracts into one;
 :func:`fma_exact` rounds once in every case, as a hardware ``fmaf`` does,
@@ -109,7 +113,33 @@ def flush(y: torch.Tensor) -> torch.Tensor:
     return torch.where(y.abs() < _FLT_MIN, y * 0.0, y)
 
 
-def exp(x: torch.Tensor) -> torch.Tensor:
+class _AtResult(torch.autograd.Function):
+    """``fn(x)`` whose gradient is ``rule(fn(x), g)``: the derivative
+    rule of the exact function, evaluated at the computed result."""
+
+    @staticmethod
+    def forward(ctx, fn, rule, x):
+        y = fn(x)
+        ctx.rule = rule
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return None, None, ctx.rule(y, g)
+
+
+def _differentiable(fn, rule):
+    @functools.wraps(fn)
+    def call(x: torch.Tensor) -> torch.Tensor:
+        if x.requires_grad and torch.is_grad_enabled():
+            return _AtResult.apply(fn, rule, x)
+        return fn(x)
+    return call
+
+
+def _exp(x: torch.Tensor) -> torch.Tensor:
     """``e**x``, evaluated in float32 and rounded to ``x``'s dtype."""
     dt = x.dtype
     x = flush(x.to(_F32))
@@ -172,7 +202,7 @@ def log2(x: torch.Tensor) -> torch.Tensor:
     return (log(x).to(_F32) * _inv_ln2_in(x.dtype)).to(x.dtype)
 
 
-def tanh(x: torch.Tensor) -> torch.Tensor:
+def _tanh(x: torch.Tensor) -> torch.Tensor:
     """``tanh(x)`` of a float32 tensor as the reference's CPU compiler
     expands it (see the module docstring)."""
     x = x.to(_F32)
@@ -189,6 +219,10 @@ def tanh(x: torch.Tensor) -> torch.Tensor:
     y = torch.where(ax < _TANH_TINY, x, (xc * p) / q)
     return torch.where(ax >= _TANH_BIG, torch.copysign(torch.ones_like(x), x),
                        y)
+
+
+exp = _differentiable(_exp, lambda y, g: g * y)
+tanh = _differentiable(_tanh, lambda y, g: g * (1.0 - y * y))
 
 
 def const(value: float, like: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,9 @@
   wrapper and its plain torch version.  Each spec also carries the
   family's launch counts: ``launches`` rises by one where the wrapper
   launches its kernel, ``plain_calls`` where a CPU tensor takes the
-  plain version through :func:`dispatch`.
+  plain version through :func:`dispatch`, and where a CUDA tensor's
+  backward takes the exact VJP instead of the family's fused backward
+  kernel (:func:`fused_vjp` under ``REPRO_FUSED_BWD=0``).
 * **device dispatch** — :func:`dispatch`: a CUDA tensor launches the
   kernel, a CPU tensor takes the plain version.  There is no fallback: a
   CUDA tensor whose kernel fails to build or launch raises.
@@ -13,7 +15,9 @@
   interface, at first use, into ``build/`` at the repository root, and
   loads it with ``ctypes``.
 * **gradients** — :func:`ste` (from :mod:`repro_torch.core.ste`):
-  quantized forward, exact float backward.
+  quantized forward, exact float backward; :func:`fused_vjp`: a
+  family's fused backward kernel where it has one, switched off by
+  ``REPRO_FUSED_BWD=0`` (:func:`fused_backward_enabled`).
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Any, Callable, Dict, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -83,6 +87,96 @@ def reset_counts() -> None:
     for spec in _REGISTRY.values():
         spec.launches = 0
         spec.plain_calls = 0
+
+
+def largest_divisor(n: int, cap: int) -> int:
+    """Largest d with 1 <= d <= cap and n % d == 0."""
+    d = max(1, min(int(cap), int(n)))
+    while n % d:
+        d -= 1
+    return d
+
+
+def check_block(n: int, block: int, what: str) -> None:
+    """Raise unless ``block`` tiles ``n`` (the frontends pick it with
+    :func:`largest_divisor`; the raw functions take it as given)."""
+    if block < 1 or n % block:
+        raise ValueError(f"{what}: block {block} does not divide {n}")
+
+
+# ---------------------------------------------------------------------------
+# Fused backward kernels
+# ---------------------------------------------------------------------------
+
+
+def fused_backward_enabled() -> bool:
+    """The switch for the fused backward kernels, read at each call.
+
+    On by default; ``REPRO_FUSED_BWD=0`` (or ``false``/``no``) puts every
+    family back on the exact VJP of its float reference, as the JAX
+    package's switch of the same name does.
+    """
+    env = os.environ.get("REPRO_FUSED_BWD")
+    if env is None:
+        return True
+    return env.lower() not in ("0", "false", "no")
+
+
+class _FusedVjp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, fwd_res, bwd, *args):
+        out, res = fwd_res(*args)
+        ctx.bwd = bwd
+        ctx.save_for_backward(*res)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = ctx.bwd(tuple(ctx.saved_tensors), g)
+        return (None, None, *(gr if need else None for gr, need in
+                              zip(grads, ctx.needs_input_grad[2:])))
+
+
+def _counted_exact(spec: KernelSpec, grad: Callable[..., torch.Tensor]
+                   ) -> Callable[..., torch.Tensor]:
+    """``grad``, adding one to ``spec.plain_calls`` when it runs on CUDA
+    tensors: the backward went round the fused kernel on the card."""
+    def run(*args):
+        if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+            spec.plain_calls += 1
+        return grad(*args)
+    return run
+
+
+def fused_vjp(fwd: Callable[..., torch.Tensor],
+              grad: Callable[..., torch.Tensor],
+              fwd_res: Optional[Callable[..., Any]] = None,
+              bwd: Optional[Callable[..., Any]] = None,
+              spec: Optional[KernelSpec] = None
+              ) -> Callable[..., torch.Tensor]:
+    """A differentiable call of a kernel family, generalising :func:`ste`.
+
+    ``fwd(*args)`` runs the forward; ``fwd_res(*args) -> (out, residuals)``
+    runs it emitting the residuals (a tuple of tensors) its fused backward
+    reads, and ``bwd(residuals, g)`` returns one cotangent per argument.
+    Without the pair, or with ``REPRO_FUSED_BWD=0``, this is :func:`ste`:
+    ``fwd`` forward, the exact VJP of the float function ``grad``
+    backward.  ``spec`` is the family's backward kernel: a CUDA tensor's
+    exact-VJP backward counts as one of its ``plain_calls``.  Static
+    configuration is bound into the callables; the result takes tensors
+    only.  A call that needs no gradient runs ``fwd``.
+    """
+    if fwd_res is None or bwd is None or not fused_backward_enabled():
+        return ste(fwd, grad if spec is None else _counted_exact(spec, grad))
+
+    def call(*args):
+        if torch.is_grad_enabled() and any(
+                isinstance(a, torch.Tensor) and a.requires_grad
+                for a in args):
+            return _FusedVjp.apply(fwd_res, bwd, *args)
+        return fwd(*args)
+
+    return call
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,10 @@
 // S starts at zero, or (q8) at the int8 state times its per-row float32
 // scale; the q8 form requantizes the final state in the kernel:
 // sc = max_j |S_ij| * (1/127), q = clip(rint(S / max(sc, 1e-30)), +-127).
+// The float form can also write the state at the start of every block of
+// block_t steps, the checkpoints (rows, T / block_t, dk, dv) from which
+// the backward (wkv_bwd.cu) recomputes the states of each block, as the
+// TPU kernel does under return_residuals.
 // Bit-exact against kernels/wkv/ref.py on S, and so on the int8 words and
 // scales; y is a sum in another order.  The reference's compiler contracts
 // w * S + kv into one fused multiply-add; this kernel's fmaf rounds once
@@ -50,7 +54,9 @@ struct WkvArgs {
   const float* s0_scale;  // q8: (rows, dk)
   int8_t* s_q;            // q8: (rows, dk, dv) int8 state out
   float* s_scale;         // q8: (rows, dk)
+  float* ckpt;            // float form: (rows, T / block_t, dk, dv) or null
   long long t_len;
+  long long block_t;      // divides t_len; read when ckpt is set
   int rows;
   int dt_r, dt_k, dt_v, dt_w, dt_u, dt_out;
   float inv127;           // float32(1/127), from the host
@@ -98,6 +104,12 @@ __global__ void __launch_bounds__(DV) wkv_kernel(const WkvArgs a) {
   }
 
   for (long long t = 0; t < a.t_len; ++t) {
+    if (!Q8 && a.ckpt != nullptr && t % a.block_t == 0) {
+      float* c = a.ckpt + (row * (a.t_len / a.block_t) + t / a.block_t) *
+                              (long long)(DK * DV);
+#pragma unroll
+      for (int i = 0; i < DK; ++i) c[i * DV + j] = S[i];
+    }
     __syncthreads();  // the last step's reads of the staging are done
     for (int i = j; i < DK; i += DV) {
       const long long o = kbase + t * DK + i;
@@ -168,7 +180,8 @@ cudaError_t launch_d(const WkvArgs& a, int d, cudaStream_t s) {
 // Launches on `stream`; returns a cudaError_t.
 extern "C" int wkv_forward(const WkvArgs* a, int dk, int dv, int q8,
                            int device, void* stream) {
-  if (a == nullptr || a->rows < 0 || a->t_len < 0 || dk != dv)
+  if (a == nullptr || a->rows < 0 || a->t_len < 0 || dk != dv ||
+      (a->ckpt != nullptr && (a->block_t <= 0 || a->t_len % a->block_t)))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;

@@ -3,7 +3,7 @@ CORDIC datapath (FxP8 MAC + DA-VINCI AFs) is an execution mode of every
 architecture."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -50,11 +50,26 @@ def softmax(x: torch.Tensor, policy: ExecutionPolicy, axis: int = -1
     return torch.softmax(x, dim=axis)
 
 
-def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5
-             ) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5,
+             dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """RMS norm in float32, the result in ``dtype`` (default ``x``'s)."""
+    dtype = dtype or x.dtype
     x32 = x.to(torch.float32)
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * gamma.to(x.dtype)
+    return (x32 * torch.rsqrt(var + eps)).to(dtype) * gamma.to(dtype)
+
+
+def residual_norm(x: torch.Tensor, y: torch.Tensor, gamma: torch.Tensor,
+                  eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``x + y`` and the RMS norm of it: ``(x + y, rms_norm(x + y))``.
+
+    The reference's compiled block feeds the norm the sum's float32 value,
+    not rounded to ``x``'s dtype first (its compiler drops a round trip
+    through bfloat16 that is converted back to float32 next), while the
+    residual stream carries the rounded sum.  In float32 the two are the
+    same."""
+    s32 = x.to(torch.float32) + y.to(torch.float32)
+    return s32.to(x.dtype), rms_norm(s32, gamma, eps, dtype=x.dtype)
 
 
 def rope_angles(positions: torch.Tensor, head_dim: int, theta: float
@@ -87,3 +102,16 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 def embedding_lookup(tokens: torch.Tensor, table: torch.Tensor
                      ) -> torch.Tensor:
     return table[tokens]
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean cross entropy over the valid positions, in float32."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.to(torch.float32)
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

@@ -85,6 +85,10 @@ class Model:
     def forward(self, params, batch, pol: Optional[ExecutionPolicy] = None):
         return T.forward(params, batch, self.cfg, pol)
 
+    def loss(self, params, batch, pol: Optional[ExecutionPolicy] = None):
+        """(loss, metrics) of a training batch; differentiable."""
+        return T.loss_fn(params, batch, self.cfg, pol)
+
     def prefill(self, params, batch, pol: Optional[ExecutionPolicy] = None,
                 headroom: int = 64, lengths=None):
         return T.prefill(params, batch, self.cfg, pol, headroom=headroom,

@@ -66,6 +66,16 @@ def _mix(x: Tensor, xs: Tensor, mu: Tensor) -> Tensor:
     return _muladd(xs - x, mu.to(x.dtype), x)
 
 
+def _mix_f32(x: Tensor, xs: Tensor, mu: Tensor) -> Tensor:
+    """The lerp converted to float32, as the reference's compiled program
+    evaluates ``(x + (xs - x) * mu).astype(float32)``: in bfloat16 the
+    subtract and the multiply round to bfloat16 and the add, whose result
+    is converted next, is kept in float32 unrounded."""
+    if x.dtype == _F32:
+        return _mix(x, xs, mu)
+    return x.to(_F32) + ((xs - x) * mu.to(x.dtype)).to(_F32)
+
+
 def _last_valid(x: Tensor, lengths: Optional[Tensor]) -> Tensor:
     """x[:, n-1, :] per row — the boundary token carried into decode.
 
@@ -114,7 +124,8 @@ def rwkv6_timemix(x: Tensor, p: Rwkv6Params, cfg: ArchConfig,
     dk = d // h
     x_prev, s0 = state
     xs = _token_shift(x, x_prev)
-    xr, xk, xv, xw, xg = (_mix(x, xs, p.mu[i]) for i in range(5))
+    xr, xk, xv, xg = (_mix(x, xs, p.mu[i]) for i in (0, 1, 2, 4))
+    xw = _mix_f32(x, xs, p.mu[3])
     r = L.dense(xr, p.wr, pol).reshape(b, t, h, dk)
     k = L.dense(xk, p.wk, pol).reshape(b, t, h, dk)
     v = L.dense(xv, p.wv, pol).reshape(b, t, h, dk)

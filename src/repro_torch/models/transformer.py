@@ -16,6 +16,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, ExecutionPolicy
 from repro_torch.core.quant_cache import dequantize_blocked, quantize_blocked
@@ -154,9 +155,10 @@ def _attn_params(bp: Dict[str, Any]) -> A.AttnParams:
                         a.get("bk"), a.get("bv"))
 
 
-def _ffn(x: Tensor, bp: Dict[str, Any], cfg: ArchConfig,
+def _ffn(x: Tensor, attn_out: Tensor, bp: Dict[str, Any], cfg: ArchConfig,
          pol: ExecutionPolicy) -> Tensor:
-    h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
+    """The attention residual ``x + attn_out``, then the FFN sub-block."""
+    x, h = L.residual_norm(x, attn_out, bp["ln2"], cfg.norm_eps)
     f = bp["ffn"]
     return x + L.swiglu(h, f["w_gate"], f["w_up"], f["w_down"], pol,
                         cfg.activation)
@@ -173,8 +175,8 @@ def block_forward(x: Tensor, bp: Dict[str, Any], cfg: ArchConfig,
     h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
     q, k, v = A.qkv(h, _attn_params(bp), cfg, pol, positions)
     ctx = A.attention(q, k, v, cfg, pol, positions, positions, window)
-    x = x + L.dense(ctx.reshape(*x.shape[:2], -1), bp["attn"]["wo"], pol)
-    return _ffn(x, bp, cfg, pol), k, v
+    attn_out = L.dense(ctx.reshape(*x.shape[:2], -1), bp["attn"]["wo"], pol)
+    return _ffn(x, attn_out, bp, cfg, pol), k, v
 
 
 def ssm_block(x: Tensor, bp: Dict[str, Any], cfg: ArchConfig,
@@ -190,8 +192,7 @@ def ssm_block(x: Tensor, bp: Dict[str, Any], cfg: ArchConfig,
     tm_out, (xp, wkv) = S.rwkv6_timemix(
         h, S.Rwkv6Params(**bp["tm"]), cfg, pol, (x_prev, wkv), mask=mask,
         lengths=lengths)
-    x = x + tm_out
-    h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
+    x, h = L.residual_norm(x, tm_out, bp["ln2"], cfg.norm_eps)
     x, cp = S.rwkv6_channelmix(h, S.Rwkv6ChannelParams(**bp["cm"]), cfg, pol,
                                cm_prev, lengths=lengths, residual=x)
     return x, xp, cp, wkv
@@ -206,22 +207,52 @@ def _zero_rec(cfg: ArchConfig, b: int, like: Tensor
                                device=like.device), zeros)
 
 
+def _blocks(x: Tensor, params: Dict[str, Any], cfg: ArchConfig,
+            pol: ExecutionPolicy) -> Tensor:
+    """Every decoder block over the full sequence.  With ``cfg.remat``
+    and a gradient to take, each block is a ``torch.utils.checkpoint``
+    segment: its activations are recomputed in the backward, as the
+    reference's ``jax.checkpoint`` of the scanned block body does."""
+    s = x.shape[1]
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)
+    windows = layer_windows(cfg, s)
+
+    def block(x, bp, window):
+        if cfg.family == "ssm":
+            return ssm_block(x, bp, cfg, pol,
+                             *_zero_rec(cfg, x.shape[0], x))[0]
+        return block_forward(x, bp, cfg, pol, positions, window)[0]
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i in range(cfg.n_layers):
+        bp = _layer(params["blocks"], i)
+        if remat:
+            x = checkpoint(block, x, bp, int(windows[i]), use_reentrant=False)
+        else:
+            x = block(x, bp, int(windows[i]))
+    return x
+
+
 def forward(params: Dict[str, Any], batch: Dict[str, Tensor],
             cfg: ArchConfig, pol: Optional[ExecutionPolicy] = None) -> Tensor:
     """Full-sequence forward -> logits (B, S, V).  batch: {"tokens": (B,S)}."""
     pol = pol or cfg.exec_policy
     x = L.embedding_lookup(batch["tokens"], params["embed"])
-    s = x.shape[1]
-    positions = torch.arange(s, dtype=torch.int32, device=x.device)
-    windows = layer_windows(cfg, s)
-    for i in range(cfg.n_layers):
-        bp = _layer(params["blocks"], i)
-        if cfg.family == "ssm":
-            x = ssm_block(x, bp, cfg, pol, *_zero_rec(cfg, x.shape[0], x))[0]
-        else:
-            x = block_forward(x, bp, cfg, pol, positions, int(windows[i]))[0]
-    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    x = L.rms_norm(_blocks(x, params, cfg, pol), params["ln_f"], cfg.norm_eps)
     return L.dense(x, params["lm_head"], pol)
+
+
+def loss_fn(params: Dict[str, Any], batch: Dict[str, Tensor],
+            cfg: ArchConfig, pol: Optional[ExecutionPolicy] = None
+            ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Mean next-token cross entropy of ``batch`` ({"tokens", "labels"
+    (B, S), optional "mask"}) plus the reference's auxiliary term, which
+    is zero for the dense and ssm families.  Returns (loss, {"ce", "aux"}).
+    """
+    logits = forward(params, batch, cfg, pol)
+    ce = L.cross_entropy(logits, batch["labels"], batch.get("mask"))
+    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    return ce + 0.01 * aux / max(cfg.n_layers, 1), {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -324,8 +355,8 @@ def decode_step(params: Dict[str, Any], state: DecodeState,
             ctx = A.decode_attention(q, k, v, state.cache_k[i],
                                      state.cache_v[i], pos, cfg, pol,
                                      int(windows[i]))
-            x = x + L.dense(ctx.reshape(b, 1, -1), bp["attn"]["wo"], pol)
-            x = _ffn(x, bp, cfg, pol)
+            x = _ffn(x, L.dense(ctx.reshape(b, 1, -1), bp["attn"]["wo"], pol),
+                     bp, cfg, pol)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = L.dense(x, params["lm_head"], pol)
     return logits, state._replace(pos=pos + 1)

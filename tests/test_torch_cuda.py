@@ -23,7 +23,8 @@ from repro_torch.configs import (CORDIC_EXEC, CacheSpec, ExecutionPolicy,
 from repro_torch.core import activations as acts
 from repro_torch.core import fixed_point as fxp
 from repro_torch.core import quantization as quant
-from repro_torch.kernels import common, cordic_act, cordic_softmax, wkv, wkv_q8
+from repro_torch.kernels import (common, cordic_act, cordic_softmax,
+                                 flash_attention, wkv, wkv_q8)
 from repro_torch.kernels.cordic_act.ops import cordic_act_raw
 from repro_torch.kernels.cordic_act.ref import cordic_act_raw_ref
 from repro_torch.kernels.cordic_mac import ops
@@ -31,7 +32,13 @@ from repro_torch.kernels.cordic_mac.ref import cordic_matmul_raw_ref
 from repro_torch.kernels.cordic_softmax.ops import cordic_softmax_raw
 from repro_torch.kernels.cordic_softmax.ref import cordic_softmax_raw_ref
 from repro_torch.kernels.wkv import kernel as wkv_kernel
-from repro_torch.kernels.wkv.ref import wkv_q8_ref, wkv_recurrence_ref
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
+from repro_torch.kernels.flash_attention.ops import exact_attention
+from repro_torch.kernels.flash_attention.ref import (flash_bwd_ref,
+                                                     flash_fwd_ref)
+from repro_torch.kernels.wkv.ops import exact_wkv
+from repro_torch.kernels.wkv.ref import (wkv_q8_ref, wkv_recurrence_bwd_ref,
+                                         wkv_recurrence_ref)
 from repro_torch.models.model_zoo import build_model
 from repro_torch.models.spec import to_device
 from repro_torch.runtime.serve_loop import Request, ServeConfig, ServeEngine
@@ -390,3 +397,193 @@ def test_reduced_rwkv6_on_card(cuda, cache):
                                                         device=cuda)})
                 seq.append(int(lg.reshape(-1).argmax()))
         assert r.output.tolist() == seq, r.rid
+
+
+FLASH_TOL = 2e-4    # float32: the reference's own band for its flash tests
+
+
+def _flash_close(got, want, dtype):
+    """float32 within FLASH_TOL; bf16 outputs within one bf16 ulp."""
+    tol = FLASH_TOL if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,sq,sk,d,causal", [
+    (4, 4, 64, 64, 16, True), (4, 4, 64, 64, 16, False),
+    (8, 2, 64, 64, 16, True), (4, 1, 64, 64, 8, True),
+    (8, 4, 40, 40, 8, True), (2, 2, 96, 96, 16, False),
+    (4, 2, 96, 96, 64, True), (4, 2, 40, 40, 128, False),
+    (2, 1, 33, 70, 256, False), (2, 2, 130, 130, 100, True)])
+def test_flash_kernels_match_plain_on_card(cuda, hq, hkv, sq, sk, d, causal,
+                                           dtype):
+    """Kernels 4 and 6 against their plain versions on the same inputs:
+    out, lse, dq, dk, dv."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(hq * sq + d)
+    q = torch.randn((hq, sq, d), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((hkv, sk, d), generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    do = torch.randn((hq, sq, d), generator=gen, device=cuda).to(dtype)
+    group = hq // hkv
+    common.reset_counts()
+    out, lse = flash_kernel.flash_attention_nhd_cuda(
+        q, k, v, causal=causal, group=group, return_residuals=True)
+    w_out, w_lse = flash_fwd_ref(q, k, v, causal=causal, group=group)
+    _flash_close(out, w_out, dtype)
+    torch.testing.assert_close(lse, w_lse, rtol=FLASH_TOL, atol=FLASH_TOL)
+    delta = (do.float() * w_out.float()).sum(-1)
+    got = flash_kernel.flash_attention_bwd_nhd_cuda(
+        q, k, v, do, w_lse, delta, causal=causal, group=group)
+    want = flash_bwd_ref(q, k, v, do, w_lse, delta, causal=causal,
+                         group=group)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32
+        torch.testing.assert_close(a, b, rtol=FLASH_TOL, atol=FLASH_TOL)
+    assert (common.get_kernel("flash_attention").launches,
+            common.get_kernel("flash_attention_bwd").launches) == (1, 1)
+
+
+def test_flash_frontend_gradient_on_card(cuda):
+    """``flash_attention`` on CUDA tensors launches kernels 4 and 6 and
+    never the plain versions; its gradient equals the exact attention
+    VJP (Sq == Sk, where the two causal masks agree)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    q = torch.randn((2, 72, 8, 64), generator=gen, device=cuda)
+    k, v = (torch.randn((2, 72, 2, 64), generator=gen, device=cuda)
+            for _ in range(2))
+    g = torch.randn((2, 72, 8, 64), generator=gen, device=cuda)
+    args = [a.clone().requires_grad_(True) for a in (q, k, v)]
+    common.reset_counts()
+    got = torch.autograd.grad(flash_attention(*args), args, g)
+    for name in ("flash_attention", "flash_attention_bwd"):
+        spec = common.get_kernel(name)
+        assert (spec.launches, spec.plain_calls) == (1, 0), name
+    ref = [a.clone().requires_grad_(True) for a in (q, k, v)]
+    want = torch.autograd.grad(exact_attention(*ref, causal=True), ref, g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=FLASH_TOL, atol=FLASH_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,t,d,block_t", [(4, 32, 8, 8), (4, 64, 16, 64),
+                                            (2, 24, 32, 16), (80, 48, 64, 16),
+                                            (3, 40, 64, 64)])
+def test_wkv_backward_matches_plain_on_card(cuda, bh, t, d, block_t, dtype):
+    """Kernel 7's checkpoints equal its plain version's word for word;
+    kernel 9's gradients are within the reference's 2e-4 band of the
+    plain adjoint sweep (sums in another order)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(bh * t + d)
+    raw = _wkv_raw(gen, bh, t, d, dtype, cuda)
+    dy = torch.randn((bh, t, d), generator=gen, device=cuda).to(dtype)
+    bt = common.largest_divisor(t, block_t)
+    common.reset_counts()
+    _, ckpt = wkv_kernel.wkv_recurrence_cuda(*raw, block_t=bt,
+                                             return_residuals=True)
+    _, w_ckpt = wkv_recurrence_ref(*raw, block_t=bt, return_residuals=True)
+    assert torch.equal(ckpt, w_ckpt)
+    got = wkv_kernel.wkv_recurrence_bwd_cuda(*raw, dy, ckpt, block_t=bt)
+    want = wkv_recurrence_bwd_ref(*raw, dy, w_ckpt, block_t=bt)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
+    assert (common.get_kernel("wkv").launches,
+            common.get_kernel("wkv_bwd").launches) == (1, 1)
+
+
+def test_wkv_frontend_gradient_on_card(cuda):
+    """``wkv`` on CUDA tensors under a gradient launches kernels 7 and 9
+    only; the gradient equals the exact VJP of the float scan."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1)
+    b, t, h, d = 2, 40, 4, 64
+    r, k, v = (torch.randn((b, t, h, d), generator=gen, device=cuda) * 0.5
+               for _ in range(3))
+    w = torch.rand((b, t, h, d), generator=gen, device=cuda) * 0.5 + 0.45
+    u = torch.randn((h, d), generator=gen, device=cuda) * 0.5
+    g = torch.randn((b, t, h, d), generator=gen, device=cuda)
+    args = [a.clone().requires_grad_(True) for a in (r, k, v, w, u)]
+    common.reset_counts()
+    got = torch.autograd.grad(wkv(*args), args, g)
+    for name in ("wkv", "wkv_bwd"):
+        spec = common.get_kernel(name)
+        assert (spec.launches, spec.plain_calls) == (1, 0), name
+    ref = [a.clone().requires_grad_(True) for a in (r, k, v, w, u)]
+    want = torch.autograd.grad(exact_wkv(*ref), ref, g)
+    for a, b_ in zip(got, want):
+        torch.testing.assert_close(a, b_, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("family", ["wkv", "flash_attention"])
+def test_exact_backward_switch_counts_plain_on_card(cuda, family,
+                                                    monkeypatch):
+    """``REPRO_FUSED_BWD=0`` on CUDA tensors: the backward is the exact
+    VJP, which the backward kernel's spec counts as a plain call; the
+    backward kernel is not launched."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(2)
+    if family == "wkv":
+        b, t, h, d = 1, 32, 2, 64
+        args = [torch.randn((b, t, h, d), generator=gen, device=cuda) * 0.5
+                for _ in range(3)]
+        args.append(torch.rand((b, t, h, d), generator=gen, device=cuda)
+                    * 0.5 + 0.45)
+        args.append(torch.randn((h, d), generator=gen, device=cuda) * 0.5)
+        fn, exact, bwd = wkv, exact_wkv, "wkv_bwd"
+    else:
+        args = [torch.randn((1, 32, hh, 64), generator=gen, device=cuda)
+                for hh in (4, 2, 2)]
+        fn, bwd = flash_attention, "flash_attention_bwd"
+
+        def exact(q, k, v):
+            return exact_attention(q, k, v, causal=True)
+    monkeypatch.setenv("REPRO_FUSED_BWD", "0")
+    args = [a.requires_grad_(True) for a in args]
+    out = fn(*args)
+    g = torch.randn(out.shape, generator=gen, device=cuda)
+    common.reset_counts()
+    got = torch.autograd.grad(out, args, g)
+    spec = common.get_kernel(bwd)
+    assert (spec.launches, spec.plain_calls) == (0, 1)
+    ref = [a.detach().clone().requires_grad_(True) for a in args]
+    want = torch.autograd.grad(exact(*ref), ref, g)
+    for a, b_ in zip(got, want):
+        torch.testing.assert_close(a, b_, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("arch", ["glm4-9b", "rwkv6-3b"])
+def test_reduced_training_on_card(cuda, arch):
+    """Two Trainer steps of the reduced model in float32 under CORDIC_EXEC:
+    the card's losses within 1e-4 of the CPU's (float32 sums in another
+    order), no kernel's plain version taken on the card."""
+    import dataclasses as dc
+
+    from repro_torch.configs import LM_SHAPES
+    from repro_torch.data.pipeline import stream_for_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train_loop import TrainConfig, Trainer
+    base = get_arch(arch).reduced().scaled(dtype="float32")
+    init = build_model(base, "cpu").init(seed=0)
+    shape = dc.replace(LM_SHAPES["train_4k"], seq_len=16, global_batch=2)
+    losses = {}
+    for where in ("cpu", cuda):
+        model = build_model(base, where)
+        tcfg = TrainConfig(optimizer=adamw.AdamWConfig(
+            lr=1e-3, warmup_steps=1, total_steps=2), log_every=1)
+        tr = Trainer(model, tcfg, stream_for_model(model, shape),
+                     pol=CORDIC_EXEC)
+        tr.init_state = (lambda seed=0, m=model, t=tcfg: (
+            _copy(init, m.device), adamw.init(t.optimizer, _copy(
+                init, m.device)), torch.zeros((), device=m.device)))
+        common.reset_counts()
+        losses[str(where)] = [x for _, x in tr.run(2)["losses"]]
+        assert not any(common.get_kernel(n).plain_calls
+                       for n in common.registered_kernels()) or where == "cpu"
+    a, b = losses["cpu"], losses[str(cuda)]
+    assert len(a) == 2 and max(abs(x - y) for x, y in zip(a, b)) <= 1e-4
+
+
+def _copy(tree, device):
+    return {k: (_copy(v, device) if isinstance(v, dict) else
+                v.to(device, copy=True)) for k, v in tree.items()}

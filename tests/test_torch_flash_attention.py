@@ -1,0 +1,204 @@
+"""The port's flash-attention plain versions and frontend against the JAX
+reference, on the CPU.
+
+The same numpy inputs go through ``repro``'s oracles
+(``attention_nhd_ref``, ``attention_bwd_ref``), its Pallas kernels in
+interpret mode (``flash_attention_nhd`` with its residuals,
+``flash_attention_bwd_nhd``) and its differentiable ``flash_attention``,
+and through the port's counterparts (a CPU tensor takes the plain
+versions of the kernels).  Bars: atol = rtol = 2e-4 in float32, the
+reference's own (``tests/test_kernel_grads.py``); the sums run in
+another order.
+
+The kernels mask causally top-left (``qpos >= kpos``), the oracle
+bottom-right (``tril(k=Sk-Sq)``): the two agree when Sq == Sk or when not
+causal, and each side is held to its own counterpart where they differ.
+The CUDA kernels are held to these plain versions on the card in
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import ops as jops
+from repro.kernels.flash_attention.kernel import flash_attention_nhd as j_fwd
+from repro.kernels.flash_attention.kernel_bwd import \
+    flash_attention_bwd_nhd as j_bwd
+from repro.kernels.flash_attention.ref import attention_bwd_ref as j_bwd_ref
+from repro.kernels.flash_attention.ref import attention_nhd_ref as j_ref
+from repro_torch import kernels as K
+from repro_torch.kernels import common
+from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_nhd_ref,
+                                                     flash_bwd_ref,
+                                                     flash_fwd_ref)
+
+torch.set_num_threads(2)
+
+TOL = 2e-4
+# (b, s, hq, hkv, d), causal: the reference's gradient test cases
+CASES = [((2, 64, 4, 4, 16), True), ((2, 64, 4, 4, 16), False),
+         ((1, 64, 8, 2, 16), True), ((1, 64, 4, 1, 8), True),
+         ((2, 40, 4, 2, 8), True), ((1, 96, 2, 2, 16), False)]
+
+
+def _inputs(b, s, hq, hkv, d, seed=0, sk=None):
+    rng = np.random.default_rng(seed)
+    sk = s if sk is None else sk
+    q = rng.normal(size=(b, s, hq, d)).astype(np.float32)
+    k = rng.normal(size=(b, sk, hkv, d)).astype(np.float32)
+    v = rng.normal(size=(b, sk, hkv, d)).astype(np.float32)
+    g = rng.normal(size=(b, s, hq, d)).astype(np.float32)
+    return q, k, v, g
+
+
+def _hsd(x):
+    """(B, S, H, d) -> (B * H, S, d)."""
+    b, s, h, d = x.shape
+    return np.ascontiguousarray(x.transpose(0, 2, 1, 3).reshape(b * h, s, d))
+
+
+def _close(got, want, tol=TOL):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32), atol=tol,
+                               rtol=tol)
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.array(a, copy=True)) for a in arrays]
+
+
+@pytest.mark.parametrize("shape,causal", CASES)
+def test_plain_forward_and_lse_match_reference(shape, causal):
+    """(out, lse) of the plain kernel 4 against the interpret-mode Pallas
+    kernel with its residuals, and out against the oracle (Sq == Sk)."""
+    q, k, v, _ = _inputs(*shape)
+    group = shape[2] // shape[3]
+    qs, ks, vs = _hsd(q), _hsd(k), _hsd(v)
+    out, lse = flash_fwd_ref(*_t(qs, ks, vs), causal=causal, group=group)
+    j_out, j_lse = j_fwd(jnp.asarray(qs), jnp.asarray(ks), jnp.asarray(vs),
+                         causal=causal, group=group, interpret=True,
+                         return_residuals=True)
+    _close(out, j_out)
+    _close(lse, j_lse)
+    _close(out, j_ref(jnp.asarray(qs), jnp.asarray(ks), jnp.asarray(vs),
+                      causal=causal, group=group))
+    _close(attention_nhd_ref(*_t(qs, ks, vs), causal=causal, group=group),
+           out)
+
+
+@pytest.mark.parametrize("shape,causal", CASES)
+def test_plain_backward_matches_reference(shape, causal):
+    """Plain kernel 6 against the interpret-mode Pallas backward on the
+    same lse and delta, and against the oracle's exact VJP."""
+    q, k, v, g = _inputs(*shape, seed=1)
+    group = shape[2] // shape[3]
+    qs, ks, vs, gs = _hsd(q), _hsd(k), _hsd(v), _hsd(g)
+    j_out, j_lse = j_fwd(jnp.asarray(qs), jnp.asarray(ks), jnp.asarray(vs),
+                         causal=causal, group=group, interpret=True,
+                         return_residuals=True)
+    delta = np.einsum("hsd,hsd->hs", gs, np.asarray(j_out))
+    lse = np.asarray(j_lse)
+    got = flash_bwd_ref(*_t(qs, ks, vs, gs, lse, delta), causal=causal,
+                        group=group)
+    want = j_bwd(*map(jnp.asarray, (qs, ks, vs, gs, lse, delta)),
+                 causal=causal, group=group, interpret=True)
+    exact = j_bwd_ref(*map(jnp.asarray, (qs, ks, vs, gs)), causal=causal,
+                      group=group)
+    mine = attention_bwd_ref(*_t(qs, ks, vs, gs), causal=causal, group=group)
+    for a, b_, c, d_ in zip(got, want, exact, mine):
+        _close(a, b_)
+        _close(a, c)
+        _close(d_, c)
+
+
+@pytest.mark.parametrize("shape,causal", CASES)
+def test_ops_gradient_matches_reference_vjp(shape, causal):
+    """``repro_torch.kernels.flash_attention`` forward and gradient
+    against ``jax.vjp`` of ``repro.kernels.flash_attention``."""
+    q, k, v, g = _inputs(*shape, seed=2)
+    out_j, vjp = jax.vjp(
+        lambda a, b_, c: jops.flash_attention(a, b_, c, causal=causal),
+        *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(g))
+    args = [a.requires_grad_(True) for a in _t(q, k, v)]
+    common.reset_counts()
+    out = K.flash_attention(*args, causal=causal)
+    got = torch.autograd.grad(out, args, torch.from_numpy(g))
+    assert common.get_kernel("flash_attention").plain_calls == 1
+    assert common.get_kernel("flash_attention_bwd").plain_calls == 1
+    _close(out.detach(), out_j)
+    for a, b_ in zip(got, want):
+        assert a.dtype == torch.float32
+        _close(a, b_)
+
+
+def test_exact_backward_switch(monkeypatch):
+    """``REPRO_FUSED_BWD=0``: the backward is the oracle's exact VJP and
+    the fused kernel is not called, as in the reference."""
+    q, k, v, g = _inputs(1, 32, 4, 2, 8, seed=3)
+    monkeypatch.setenv("REPRO_FUSED_BWD", "0")
+    assert not common.fused_backward_enabled()
+    args = [a.requires_grad_(True) for a in _t(q, k, v)]
+    common.reset_counts()
+    got = torch.autograd.grad(K.flash_attention(*args), args,
+                              torch.from_numpy(g))
+    assert common.get_kernel("flash_attention_bwd").plain_calls == 0
+    _, vjp = jax.vjp(lambda *a: jops._exact_attention(*a, causal=True),
+                     *map(jnp.asarray, (q, k, v)))
+    for a, b_ in zip(got, vjp(jnp.asarray(g))):
+        _close(a, b_)
+
+
+def test_causal_mask_alignment_when_sq_differs_from_sk():
+    """Causal with Sk > Sq: the reference's interpret-mode kernel (mask
+    top-left) and its oracle (bottom-right) disagree; the port's plain
+    kernel matches the kernel and the port's oracle matches the oracle.
+    Not causal, all four agree."""
+    rng = np.random.default_rng(0)
+    q = rng.normal(size=(2, 8, 16)).astype(np.float32)
+    k = rng.normal(size=(2, 16, 16)).astype(np.float32)
+    v = rng.normal(size=(2, 16, 16)).astype(np.float32)
+    for causal in (True, False):
+        j_k = np.asarray(j_fwd(*map(jnp.asarray, (q, k, v)), causal=causal,
+                               block_q=8, block_k=8, interpret=True))
+        j_o = np.asarray(j_ref(*map(jnp.asarray, (q, k, v)), causal=causal))
+        mine_k = flash_fwd_ref(*_t(q, k, v), causal=causal)[0]
+        mine_o = attention_nhd_ref(*_t(q, k, v), causal=causal)
+        _close(mine_k, j_k)
+        _close(mine_o, j_o)
+        gap = np.abs(j_k - j_o).max()
+        if causal:
+            assert gap > 0.5, gap           # 2.77 at this seed
+        else:
+            assert gap < 1e-5, gap
+
+
+def test_bfloat16_forward_in_inputs_dtype():
+    """bf16 inputs: out in bf16, products in float32; against the
+    reference's interpret-mode kernel within one bf16 ulp of |out| <= 4."""
+    q, k, v, _ = _inputs(1, 40, 4, 2, 16, seed=4)
+    qs, ks, vs = (_hsd(a).astype(jnp.bfloat16) for a in (q, k, v))
+    out, lse = flash_fwd_ref(*[torch.from_numpy(a.view(np.uint16)).view(
+        torch.bfloat16) for a in (qs, ks, vs)], group=2)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    j_out, j_lse = j_fwd(*map(jnp.asarray, (qs, ks, vs)), group=2,
+                         interpret=True, return_residuals=True)
+    _close(out.float(), np.asarray(j_out, np.float32), tol=2 ** -7)
+    _close(lse, j_lse)
+
+
+def test_spec_registry():
+    for name, line, src in (
+            ("flash_attention", "src/repro/kernels/flash_attention/"
+             "kernel.py:82", "flash_fwd.cu"),
+            ("flash_attention_bwd", "src/repro/kernels/flash_attention/"
+             "kernel_bwd.py:141", "flash_bwd.cu")):
+        spec = common.get_kernel(name)
+        assert spec.replaces == line
+        assert spec.source == ("src/repro_torch/kernels/flash_attention/"
+                               f"csrc/{src}")
+    assert ops.flash_attention is K.flash_attention

@@ -14,11 +14,11 @@ carries them into the port.  Tolerances:
 * float32 under ``matmul="bf16"`` (plain float32 matmuls, and the decay
   LoRA's matmuls under every policy): 1e-5, float32 sums taken in another
   order by the two frameworks;
-* bfloat16 under ``matmul="bf16"``: equal greedy tokens.  (Not under the
-  fixed-point policies: there the reference's compiler keeps an op's
-  float32 result unrounded where the program converts it to float32 next,
-  as ``dense`` does before quantizing, and greedy tokens differ; ROADMAP
-  queue 3.)
+* bfloat16 under ``matmul="bf16"`` and ``cordic_kernel``: equal greedy
+  tokens.  The reference's compiler keeps an op's float32 result
+  unrounded where the program converts it to float32 next: the decay's
+  token-shift lerp (``ssm._mix_f32``) and the residual sum the channel
+  mix's norm reads (``layers.residual_norm``); the port does the same.
 
 The reference's compiled layer loop fuses float32 multiplies and adds
 (token shift, the state update, the channel-mix residual) and evaluates
@@ -57,7 +57,8 @@ MAX_SEQ = 64
 LENS = [5, 11, 16, 3, 24, 8]
 NEWS = [4, 9, 2, 12, 1, 6]
 MODES = [("bf16", "float32"), ("cordic_kernel", "float32"),
-         ("cordic_exec", "float32"), ("bf16", "bfloat16")]
+         ("cordic_exec", "float32"), ("bf16", "bfloat16"),
+         ("cordic_kernel", "bfloat16")]
 
 
 def _policies(mode):
