@@ -114,6 +114,29 @@ Phases, in order; any failure exits non-zero and prints no result:
                model's own autograd gradients; kernel 9, plain version and
                bound timed, and (context only) one layer of a 4096-token
                sequence.
+16. int8 serve — phase 6's model, parameters and traffic with the int8
+               K/V cache (``ServeConfig(cache=CacheSpec(dtype="int8"))``):
+               281 ``cordic_mac`` launches per forward call and no other
+               kernel or plain-version call, the slot cache int8 with float32
+               scales and its bytes against phase 6's bf16 cache, one
+               request equal to single-stream decode, times, peak memory, a
+               profiled decode step; the reduced model's engine with the int8
+               cache equal to single-stream decode; a recorded serve keeps,
+               for layers 0 and 39, the prefill's queries and int8 K/V words
+               and scales, and one decode step's queries, caches and
+               positions.  (Run after phase 8, on phase 6's parameters.)
+17. q8 path   — kernel 5 (``flash_attention_q8``) through
+               ``repro_torch.kernels.flash_attention_q8`` on the recorded
+               cache, every count set to 0 before and read after: the
+               prefill bucket (causal) and each slot's decode query over its
+               filled prefix (not causal: the mask is aligned top-left);
+               every call against the plain version (float32 atol = rtol =
+               2e-4; a bf16 output atol 2e-4 and rtol one bf16 step); then
+               at glm4-9b's long-context layout (a causal 4096-token prefill,
+               a decode of 4 rows over 4096 cached positions, float32 and
+               bf16 q) checked, and timed with its bound, the plain version
+               and scaled_dot_product_attention on K/V dequantized
+               beforehand.
 
 Each phase prints its seconds.  The last three lines are nvidia-smi's
 name and power limit, one JSON object with a record per kernel, and
@@ -145,9 +168,10 @@ from repro_torch.core import activations as acts  # noqa: E402
 from repro_torch.core import fixed_point as fxp  # noqa: E402
 from repro_torch.core import quantization as quant  # noqa: E402
 from repro_torch.data.pipeline import stream_for_model  # noqa: E402
+from repro_torch.core.quant_cache import quantize_blocked  # noqa: E402
 from repro_torch.kernels import (common, cordic_act,  # noqa: E402
-                                 cordic_softmax, flash_attention, wkv,
-                                 wkv_q8)
+                                 cordic_softmax, flash_attention,
+                                 flash_attention_q8, wkv, wkv_q8)
 from repro_torch.kernels.cordic_act import kernel as act_kernel  # noqa: E402
 from repro_torch.kernels.cordic_act.ref import (  # noqa: E402
     EXP_ARG_CLAMP, GUARD_BITS, cordic_act_raw_ref, exp_neg_raw_ref)
@@ -160,12 +184,13 @@ from repro_torch.kernels.flash_attention import \
     kernel as flash_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
-    flash_bwd_ref, flash_fwd_ref)
+    flash_bwd_ref, flash_fwd_ref, flash_q8_ref)
 from repro_torch.kernels.wkv import kernel as wkv_kernel  # noqa: E402
 from repro_torch.kernels.wkv import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.wkv.ref import (wkv_q8_ref,  # noqa: E402
                                          wkv_recurrence_bwd_ref,
                                          wkv_recurrence_ref)
+from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
@@ -759,6 +784,7 @@ def phase_serve(dev, smi: str) -> dict:
         f"{ref}")
     if r0.output.tolist() != ref:
         raise AssertionError("engine output differs from single-stream decode")
+    cache_bytes = state_bytes(engine._state)
     del engine
     torch.cuda.empty_cache()
     # With random fan-in-scaled weights every |w| < 1/16 runs through the
@@ -785,7 +811,7 @@ def phase_serve(dev, smi: str) -> dict:
         f"tokens, equal to single-stream decode: {not bad}")
     if bad or len(done) != len(reqs):
         raise AssertionError(f"engine differs from single-stream for {bad}")
-    return {"launches": launches, "params": params}
+    return {"launches": launches, "params": params, "cache_bytes": cache_bytes}
 
 
 @contextlib.contextmanager
@@ -2172,6 +2198,323 @@ def time_wkv_bwd(raw, dy, ckpt, bt, plain_reps: int = 2) -> tuple:
     return (ms, plain_ms, *wkv_bwd_bound(raw, dy, ckpt))
 
 
+# ---------------------------------------------------------------------------
+# The int8 K/V cache: full-width glm4-9b served with it, and kernel 5
+# ---------------------------------------------------------------------------
+
+KV_LAYERS = (0, 39)            # glm4-9b's first and last layers, recorded
+# glm4-9b's long-context layout for kernel 5: a causal prefill of 4096
+# tokens (B 1), and a decode step of 4 slots over 4096 cached positions.
+GLM4_LONG = (4096, 32, 2, 128)  # S, Hq, Hkv, d
+LONG_DECODE_ROWS = 4
+
+
+def state_bytes(state) -> int:
+    """Bytes of a decode state's K/V caches and their scales."""
+    return sum(t.numel() * t.element_size() for t in (
+        state.cache_k, state.cache_v, state.scale_k, state.scale_v)
+        if t is not None)
+
+
+@contextlib.contextmanager
+def record_kv(store: dict, n_layers: int, keep: tuple):
+    """Keep, for the layers ``keep``, the first prefill's queries and
+    int8 K/V words and scales as the engine inserts them into its slots,
+    and the first decode step's queries with the caches as that step
+    leaves them (its own K/V written) and the slots' positions."""
+    attention, decode_attention = A.attention, A.decode_attention
+    slot_update = T.slot_update
+    calls = {"prefill": 0, "decode": 0}
+
+    def rec_attention(q, k, v, cfg, pol, q_pos, k_pos, window=None):
+        layer = calls["prefill"] % n_layers
+        calls["prefill"] += 1
+        if layer in keep and ("prefill_q", layer) not in store:
+            store["prefill_q", layer] = q.detach().clone()
+        return attention(q, k, v, cfg, pol, q_pos, k_pos, window)
+
+    def rec_slot_update(state, sub, slots):
+        if "prefill_pos" not in store:
+            for name in ("cache_k", "cache_v", "scale_k", "scale_v"):
+                for layer in keep:
+                    store[name, "prefill", layer] = \
+                        getattr(sub, name)[layer].clone()
+            store["prefill_pos"] = sub.pos.clone()
+        return slot_update(state, sub, slots)
+
+    def rec_decode_attention(q, k_new, v_new, cache_k, cache_v, pos, *args):
+        ctx = decode_attention(q, k_new, v_new, cache_k, cache_v, pos, *args)
+        layer = calls["decode"] % n_layers
+        calls["decode"] += 1
+        if layer in keep and ("decode_q", layer) not in store:
+            store["decode_q", layer] = q.detach().clone()
+            for name, t in zip(("cache_k", "cache_v", "scale_k", "scale_v"),
+                               (cache_k, cache_v, *args[-2:])):
+                store[name, "decode", layer] = t.clone()
+            store["decode_pos"] = pos.clone()
+        return ctx
+
+    A.attention, A.decode_attention = rec_attention, rec_decode_attention
+    T.slot_update = rec_slot_update
+    try:
+        yield store
+    finally:
+        A.attention, A.decode_attention = attention, decode_attention
+        T.slot_update = slot_update
+
+
+def phase_int8_serve(dev, smi: str, params, bf16_cache_bytes: int) -> dict:
+    """Full-width glm4-9b under cordic_kernel with the int8 K/V cache:
+    phase 6's parameters and traffic, ``ServeConfig(cache=CacheSpec(
+    dtype="int8"))``; then the reduced model's engine against
+    single-stream decode; then a recorded serve for kernel 5."""
+    cfg = full_width(ExecutionPolicy(matmul="cordic_kernel"))
+    model = build_model(cfg, dev)
+    max_seq = 64
+    conf = ServeConfig(max_batch=4, max_seq=max_seq,
+                       cache=CacheSpec(dtype="int8"))
+    engine = ServeEngine(model, params, conf)
+    warm, reqs, rng = serve_traffic(cfg.vocab_size)
+    engine.serve(warm)
+    done, run = timed_serve(engine, reqs, dev)
+    launches, plain = run["counts"]["cordic_mac"]
+    others = {n: c for n, c in run["counts"].items()
+              if n != "cordic_mac" and any(c)}
+    forwards = run["prefills"] + run["decode_steps"]
+    st = engine._state
+    q_bytes = state_bytes(st)
+    log(f"[int8 serve] glm4-9b full width, cordic_kernel, CacheSpec(dtype="
+        f"'int8'): {len(done)} requests, {run['prefills']} prefill(s), "
+        f"{run['decode_steps']} decode steps: cordic_mac launches {launches} "
+        f"(= {launches / forwards:.1f} per forward call), plain-version calls "
+        f"{plain}, other kernels {others}")
+    if launches != LAUNCHES_PER_FORWARD * forwards or plain or others:
+        raise AssertionError(f"expected {LAUNCHES_PER_FORWARD} cordic_mac "
+                             f"launches per forward call and nothing else")
+    if st.cache_k.dtype != torch.int8 or st.scale_k is None:
+        raise AssertionError(f"the slot cache is {st.cache_k.dtype}, not int8 "
+                             f"with scales")
+    log(f"[int8 serve] slot cache: K/V {st.cache_k.dtype} "
+        f"{tuple(st.cache_k.shape)} with float32 scales "
+        f"{tuple(st.scale_k.shape)}: {q_bytes / 2 ** 20:.2f} MiB against the "
+        f"bf16 cache's {bf16_cache_bytes / 2 ** 20:.2f} MiB (phase 6), "
+        f"{bf16_cache_bytes / q_bytes:.3f}x smaller")
+    log_times("int8 serve", run, smi)
+    profile_step(engine.model, params, engine)
+    r0 = min(done, key=lambda r: r.rid)
+    ref = single_stream(engine.model, params, r0.prompt, r0.max_new_tokens,
+                        max_seq)
+    log(f"[int8 serve] request {r0.rid}: engine {r0.output.tolist()} "
+        f"single-stream {ref}")
+    if r0.output.tolist() != ref:
+        raise AssertionError("int8 cache: engine differs from single-stream")
+    first = {r.rid: r.output.tolist() for r in done}
+    del engine
+    torch.cuda.empty_cache()
+    small = dataclasses.replace(get_arch("glm4-9b").reduced(),
+                                exec_policy=ExecutionPolicy(
+                                    matmul="cordic_kernel"),
+                                cache=CacheSpec(dtype="int8"))
+    small_model = build_model(small, dev)
+    small_params = small_model.init(seed=0)
+    engine = ServeEngine(small_model, small_params,
+                         ServeConfig(max_batch=4, max_seq=max_seq))
+    small_reqs = [Request(i, rng.integers(0, small.vocab_size, n).astype(
+        np.int32), max_new_tokens=k) for i, (n, k) in enumerate(
+            zip((5, 11, 16, 3, 24, 8), (4, 9, 2, 12, 1, 6)))]
+    small_done = engine.serve(small_reqs)
+    bad = [r.rid for r in small_done if r.output.tolist() != single_stream(
+        small_model, small_params, r.prompt, r.max_new_tokens, max_seq)]
+    log(f"[int8 serve] reduced glm4-9b (bf16, cordic_kernel, int8 K/V "
+        f"cache): {len(small_done)} requests through 4 slots, "
+        f"{len({t for r in small_done for t in r.output})} distinct tokens, "
+        f"equal to single-stream decode: {not bad}")
+    if bad or len(small_done) != len(small_reqs):
+        raise AssertionError(f"int8 cache engine differs from single-stream "
+                             f"for {bad}")
+    recorded: dict = {}
+    with record_kv(recorded, cfg.n_layers, KV_LAYERS):
+        again = ServeEngine(model, params, conf).serve(
+            [Request(r.rid, r.prompt, max_new_tokens=r.max_new_tokens)
+             for r in reqs])
+    second = {r.rid: r.output.tolist() for r in again}
+    log(f"[int8 serve] a recorded serve on a fresh engine gives the same "
+        f"tokens: {second == first}; recorded layers {KV_LAYERS}: prefill "
+        f"q {tuple(recorded['prefill_q', KV_LAYERS[0]].shape)}, cache "
+        f"{tuple(recorded['cache_k', 'prefill', KV_LAYERS[0]].shape)}, "
+        f"lengths {recorded['prefill_pos'].tolist()}; decode q "
+        f"{tuple(recorded['decode_q', KV_LAYERS[0]].shape)}, positions "
+        f"{recorded['decode_pos'].tolist()}")
+    if second != first:
+        raise AssertionError("int8 cache serving is not deterministic")
+    return {"run": run, "launches": launches, "recorded": recorded}
+
+
+def q8_bound(q, k, sk_live: list, causal: bool) -> tuple:
+    """(bytes ms, operations ms) of kernel 5 on (B, Sq, Hq, d) q over
+    (B, Sk, Hkv, d) int8 K/V: q, the words, their float32 scales and the
+    output moved once; 4 flops per live (q, k) pair and channel (Q Kᵀ and
+    P V) at the bf16 tensor-core peak.  ``sk_live``: each row's keys."""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    moved = 2 * q.numel() * q.element_size()
+    ops = 0
+    for sk in sk_live:
+        moved += 2 * hkv * sk * (d + 4)
+        ops += 4 * hq * live_pairs(sq, sk, causal) * d
+    return moved / HBM_BYTES_PER_S * 1e3, ops / BF16_TC_OPS_PER_S * 1e3
+
+
+def q8_calls(rec: dict) -> list:
+    """Kernel 5's calls on the recorded serve, layer by layer: the prefill
+    shape (the 16-token bucket, Sq = Sk, causal) and the decode shape (one
+    query per slot over its filled prefix [0, pos], not causal: the
+    kernel's mask is aligned top-left, so a causal Sq = 1 query would see
+    key 0 only).  Each: (what, q, k, v, k_scale, v_scale, causal)."""
+    calls = []
+    for layer in KV_LAYERS:
+        kv = [rec[name, "prefill", layer] for name in
+              ("cache_k", "cache_v", "scale_k", "scale_v")]
+        calls.append((f"layer {layer} prefill", rec["prefill_q", layer],
+                      *kv[:2], kv[2][..., 0], kv[3][..., 0], True))
+        kv = [rec[name, "decode", layer] for name in
+              ("cache_k", "cache_v", "scale_k", "scale_v")]
+        q = rec["decode_q", layer]
+        for b, pos in enumerate(rec["decode_pos"].tolist()):
+            n = pos + 1
+            calls.append((f"layer {layer} decode slot {b} (Sk {n})",
+                          q[b:b + 1], kv[0][b:b + 1, :n], kv[1][b:b + 1, :n],
+                          kv[2][b:b + 1, :n, :, 0], kv[3][b:b + 1, :n, :, 0],
+                          False))
+    return calls
+
+
+def q8_raw(q, k, v, ks, vs):
+    """The (B, S, H, d) frontend's arguments in kernel 5's raw layout."""
+    return ([fa_ops._to_hsd(x) for x in (q, k, v)]
+            + [fa_ops._to_hs(ks), fa_ops._to_hs(vs)])
+
+
+def q8_check(q, k, v, ks, vs, causal: bool, what: str, errs: list):
+    """Kernel 5 on the raw layout against its plain version."""
+    group = q.shape[2] // k.shape[2]
+    raw = q8_raw(q, k, v, ks, vs)
+    got = flash_kernel.flash_attention_q8_nhd_cuda(*raw, causal=causal,
+                                                   group=group)
+    want = flash_q8_ref(*raw, causal=causal, group=group)
+    rtol = FLASH_TOL if q.dtype == torch.float32 else FLASH_BF16_RTOL
+    close(got, want, f"flash_attention_q8 {what}", FLASH_TOL, errs,
+          rtol=rtol)
+
+
+def long_q8_inputs(gen, rows: int, sq: int, dtype, dev):
+    """q (rows, sq, 32, 128) in ``dtype`` and an int8 K/V cache of 4096
+    positions per row (words and squeezed scales) from seeded normals
+    through ``quantize_blocked``."""
+    s, hq, hkv, d = GLM4_LONG
+    q = torch.randn((rows, sq, hq, d), generator=gen, device=dev).to(dtype)
+    kv = []
+    for _ in range(2):
+        w, sc = quantize_blocked(torch.randn((rows, s, hkv, d), generator=gen,
+                                             device=dev))
+        kv += [w, sc[..., 0]]
+    return q, kv[0], kv[2], kv[1], kv[3]
+
+
+def phase_q8_path(dev, rec: dict) -> dict:
+    """Kernel 5 through ``repro_torch.kernels.flash_attention_q8`` on the
+    int8 serve's recorded cache, every count set to 0 before and read
+    after; then every call against the plain version; then at glm4-9b's
+    long-context layout, checked and timed with its bound, the plain
+    version and scaled_dot_product_attention on K/V dequantized
+    beforehand."""
+    calls = q8_calls(rec)
+    common.reset_counts()
+    outs = [flash_attention_q8(q, k, v, ks, vs, causal=c)
+            for _, q, k, v, ks, vs, c in calls]
+    torch.cuda.synchronize()
+    counts = {n: (common.get_kernel(n).launches,
+                  common.get_kernel(n).plain_calls)
+              for n in common.registered_kernels()}
+    used = {n: c for n, c in counts.items() if any(c)}
+    log(f"[q8 path] repro_torch.kernels.flash_attention_q8 on the int8 "
+        f"serve's recorded cache, layers {KV_LAYERS}, {len(calls)} calls "
+        f"(per layer: the prefill bucket, causal; each slot's decode query "
+        f"over its filled prefix, not causal): (launches, plain calls) "
+        f"{used}")
+    if used != {"flash_attention_q8": (len(calls), 0)}:
+        raise AssertionError(f"q8 path: expected {len(calls)} launches of "
+                             f"flash_attention_q8 and nothing else, got "
+                             f"{used}")
+    errs: list = []
+    for (what, q, k, v, ks, vs, c), out in zip(calls, outs):
+        if out.shape != q.shape or not torch.isfinite(out.float()).all():
+            raise AssertionError(f"q8 path {what}: shape or values")
+        q8_check(q, k, v, ks, vs, c, what, errs)
+    log(f"[q8 path] every call within atol {FLASH_TOL}, rtol one bf16 step "
+        f"{FLASH_BF16_RTOL} of its plain version; largest |diff| "
+        f"{max(errs):.3e}")
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    s = GLM4_LONG[0]
+    cases = {"prefill": (1, s, True), "decode": (LONG_DECODE_ROWS, 1, False)}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, (rows, sq, causal) in cases.items():
+            x = long_q8_inputs(gen, rows, sq, dtype, dev)
+            q8_check(*x, causal, f"glm4-9b long context {name} "
+                     f"{str(dtype)[6:]}", errs)
+    log(f"[q8 path] at glm4-9b's long-context layout (S {s}, 32 q / 2 kv "
+        f"heads of 128; a causal prefill and a decode of "
+        f"{LONG_DECODE_ROWS} rows), float32 and bf16 q, within the same "
+        f"bars; largest |diff| so far {max(errs):.3e}")
+
+    timed = {}
+    for name, (rows, sq, causal) in cases.items():
+        q, k, v, ks, vs = long_q8_inputs(gen, rows, sq, torch.bfloat16, dev)
+        group = q.shape[2] // k.shape[2]
+        raw = q8_raw(q, k, v, ks, vs)
+        # the library's inputs, dequantized to q's dtype beforehand (not
+        # timed): scaled_dot_product_attention reads bf16 K/V
+        lk, lv = ((w.float() * sc[..., None]).to(q.dtype).transpose(1, 2)
+                  for w, sc in ((k, ks), (v, vs)))
+        lq = q.transpose(1, 2)
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                lq, lk, lv, is_causal=causal, enable_gqa=True)
+
+        ms = time_ms(lambda: flash_kernel.flash_attention_q8_nhd_cuda(
+            *raw, causal=causal, group=group), [()], reps=10)
+        plain_ms = time_ms(lambda: flash_q8_ref(
+            *raw, causal=causal, group=group), [()], reps=3)
+        lib_ms = time_ms(sdpa, [()], reps=10)
+        t_b, t_o = q8_bound(q, k, [s] * rows, causal)
+        bnd, by = larger(t_b, t_o)
+        timed[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
+                       "bound_by": by, "library_ms": lib_ms}
+        log(f"  flash_attention_q8 {name}: B {rows}, Sq {sq}, Sk {s}, "
+            f"(Hq, Hkv, d) = {GLM4_LONG[1:]}, bf16 q, causal={causal}: "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd:.5f} "
+            f"ms ({by}), kernel/bound {ms / bnd:.1f}; library "
+            f"(scaled_dot_product_attention, enable_gqa, on K/V dequantized "
+            f"to bf16 beforehand, the dequantize not timed) {lib_ms:.4f} ms")
+        del q, k, v, ks, vs, raw, lk, lv, lq
+        torch.cuda.empty_cache()
+    dec = timed["decode"]
+    return {"flash_attention_q8": {
+        "launches": counts["flash_attention_q8"][0], **dec,
+        "max_abs_err": max(errs),
+        "long_prefill": timed["prefill"],
+        "work": f"one decode step of {LONG_DECODE_ROWS} slots over a "
+                f"{s}-token int8 cache at glm4-9b's layout (Hq, Hkv, d) = "
+                f"{GLM4_LONG[1:]}, bf16 q, not causal; launches: the q8 "
+                f"path on the int8 serve's recorded layers {KV_LAYERS}; "
+                f"library: scaled_dot_product_attention(enable_gqa) on K/V "
+                f"dequantized to bf16 beforehand (not timed); long_prefill: "
+                f"the causal {s}-token prefill (B 1)"}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
@@ -2189,7 +2532,8 @@ def main() -> int:
                  "wkv": wkv_kernel.library,
                  "wkv_bwd": wkv_kernel.bwd_library,
                  "flash_fwd": flash_kernel.fwd_library,
-                 "flash_bwd": flash_kernel.bwd_library}
+                 "flash_bwd": flash_kernel.bwd_library,
+                 "flash_q8": flash_kernel.q8_library}
     t0 = time.monotonic()
     with concurrent.futures.ThreadPoolExecutor(len(libraries)) as pool:
         futures = {n: pool.submit(f) for n, f in libraries.items()}
@@ -2214,10 +2558,17 @@ def main() -> int:
     phase("reference", phase_reference, dev)
     phase("cordic_exec reference", phase_cordic_exec_reference, dev)
     served = phase("serve", phase_serve, dev, smi)
+    params = served.pop("params")
     exec_served = phase("cordic_exec serve", phase_cordic_exec_serve, dev,
-                        smi, served.pop("params"))
+                        smi, params)
     davinci = phase("davinci path", phase_davinci_path, dev,
                     exec_served.pop("captured"), davinci_errs)
+    int8_served = phase("int8 serve", phase_int8_serve, dev, smi, params,
+                        served["cache_bytes"])
+    del params
+    torch.cuda.empty_cache()
+    q8_records = phase("q8 path", phase_q8_path, dev,
+                       int8_served.pop("recorded"))
     torch.cuda.empty_cache()
     wkv_errs = phase("wkv", phase_wkv, dev)
     phase("rwkv6 reference", phase_rwkv_reference, dev)
@@ -2244,7 +2595,8 @@ def main() -> int:
     record = {
         "name": spec.name, "route": "cuda", "source": spec.source,
         "replaces": spec.replaces,
-        "launches": served["launches"] + rwkv["launches"],
+        "launches": (served["launches"] + int8_served["launches"]
+                     + rwkv["launches"]),
         "max_abs_err": t_kernel["max_abs_err"],
         "ms": sum(r["ms"] * r["count"] for r in decode),
         "plain_ms": sum(r["plain_ms"] * r["count"] for r in decode),
@@ -2253,13 +2605,14 @@ def main() -> int:
         "library_ms": None,
         "work": f"one decode forward call of glm4-9b: "
                 f"{LAUNCHES_PER_FORWARD} launches at M={m}; launches: the "
-                f"glm4-9b serve ({served['launches']}) and the two rwkv6-3b "
-                f"serves ({rwkv['launches']}, {RWKV_LAUNCHES_PER_FORWARD} "
-                f"per forward call)",
+                f"glm4-9b serves with the bf16 ({served['launches']}) and "
+                f"the int8 K/V cache ({int8_served['launches']}) and the "
+                f"two rwkv6-3b serves ({rwkv['launches']}, "
+                f"{RWKV_LAUNCHES_PER_FORWARD} per forward call)",
     }
     records = [record]
     for name, rec in {**davinci, **wkv_records, **flash_records,
-                      **bwd_records}.items():
+                      **q8_records, **bwd_records}.items():
         spec = common.get_kernel(name)
         records.append({"name": name, "route": "cuda", "source": spec.source,
                         "replaces": spec.replaces, "library_ms": None,

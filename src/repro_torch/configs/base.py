@@ -55,9 +55,9 @@ class CacheSpec:
       paged:      slot K/V in a shared block pool behind block tables.
       page_size:  tokens per pool page when ``paged``.
 
-    The port serves the ``native`` unpaged format, and ``int8`` for the
-    ssm family's recurrent state; the others are validated here and
-    refused by the model (``models/transformer.check_supported``).
+    The port serves the unpaged formats (``native``, ``int8`` and, for
+    the dense family's K/V cache, ``fxp8``); paged caches are validated
+    here and refused by the model (``models/transformer.check_supported``).
     """
 
     dtype: str = "native"

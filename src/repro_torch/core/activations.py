@@ -172,16 +172,33 @@ def _silu(x: torch.Tensor) -> torch.Tensor:
     return libm.flush(x * _logistic(x))
 
 
+def _tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.tanh`` as the reference evaluates it (:func:`libm.tanh`, in
+    float32, rounded to ``x``'s dtype): ``torch.tanh`` differs in the
+    last bits of most float32 inputs."""
+    return libm.tanh(x).to(x.dtype)
+
+
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=True)``, one rounded op at a time in
+    ``x``'s dtype, its tanh the reference's (:func:`_tanh`)."""
+    c = libm.const(math.sqrt(2 / math.pi), x)
+    inner = c * (x + libm.const(0.044715, x) * (x * (x * x)))
+    return x * (0.5 * (1.0 + _tanh(inner)))
+
+
 def _exact(name: str, axis: int = -1) -> Callable[[torch.Tensor],
                                                    torch.Tensor]:
-    """The exact float AF: torch's, except sigmoid and silu, whose forward
-    is the reference's evaluation (gradients stay torch's)."""
+    """The exact float AF: torch's, except tanh, gelu, sigmoid and silu,
+    whose forward is the reference's evaluation (gradients stay
+    torch's)."""
     return {
         "relu": torch.relu,
-        "tanh": torch.tanh,
+        "tanh": _tanh,
         "sigmoid": ste(_logistic, torch.sigmoid),
         "softmax": functools.partial(torch.softmax, dim=axis),
-        "gelu": functools.partial(F.gelu, approximate="tanh"),
+        "gelu": ste(_gelu_tanh, functools.partial(F.gelu,
+                                                  approximate="tanh")),
         "selu": F.selu,
         "swish": ste(_silu, F.silu),
         "silu": ste(_silu, F.silu),

@@ -1,5 +1,5 @@
-"""``exp``, ``log``, ``exp2``, ``log2`` and ``tanh`` as the reference
-evaluates them.
+"""``exp``, ``log``, ``exp2``, ``log2``, ``tanh``, ``sin`` and ``cos`` as
+the reference evaluates them.
 
 The float-emulated fixed point of :mod:`repro_torch.core.cordic`,
 :mod:`~repro_torch.core.activations` and
@@ -27,7 +27,16 @@ rounded float32 operation at a time:
   bfloat16), each step rounded to that dtype;
 * ``tanh``: the input clamped to +-7.99881172, a rational polynomial
   (odd degree 13 over even degree 6 in x, Eigen's fast float tanh) with
-  its Horner steps fused, ``x`` itself below 0.0004 and +-1 from 20 up.
+  its Horner steps fused, ``x`` itself below 0.0004 and +-1 from 20 up;
+* ``sin``/``cos`` (float32, the rotary embedding's): the reference's CPU
+  compiler calls the C library's ``sinf``/``cosf``, which work in float64:
+  below 120 a reduction by the nearest multiple of pi/2, from 120 up an
+  exact reduction against 192 bits of 2/pi in integer arithmetic, then a
+  degree-7 sine or degree-8 cosine polynomial of the reduced argument,
+  rounded once to float32.  The library is built with FMAs: each
+  multiply-add of the reduction and the polynomials rounds once in
+  float64 (:func:`_fma64`).  The steps are spelled out in float64 and
+  int64 torch operations.
 
 Differentiated, ``exp`` and ``tanh`` take JAX's rules at their own
 result, ``g * exp(x)`` and ``g * (1 - tanh(x)**2)``, as the reference's
@@ -45,6 +54,7 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import Tuple
 
 import torch
 
@@ -234,3 +244,125 @@ def const(value: float, like: torch.Tensor) -> torch.Tensor:
     tensor on the device is divided by; ``torch.full`` makes it without a
     copy from the host (which would wait for the device)."""
     return torch.full((), value, dtype=like.dtype, device=like.device)
+
+
+# sin/cos: the C library's sinf/cosf (float64 inside)
+_HPI_INV_2P24 = float.fromhex("0x1.45F306DC9C883p+23")   # 2/pi * 2**24
+_HPI = float.fromhex("0x1.921FB54442D18p0")              # pi/2
+_PI63 = float.fromhex("0x1.921FB54442D18p-62")           # pi/2 * 2**-62
+_SIN_S = tuple(map(float.fromhex, ("-0x1.555545995a603p-3",
+                                   "0x1.1107605230bc4p-7",
+                                   "-0x1.994eb3774cf24p-13")))
+_COS_C = tuple(map(float.fromhex, ("-0x1.ffffffd0c621cp-2",
+                                   "0x1.55553e1068f19p-5",
+                                   "-0x1.6c087e89a359dp-10",
+                                   "0x1.99343027bf8c3p-16")))
+
+
+def _fma64(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float64 ``a * b + c`` rounded once (up to a rounding error of the
+    product's own error term, far below what reaches a float32 result):
+    Dekker's exact product, Knuth's two-sum, one final add."""
+    a = torch.as_tensor(a, dtype=torch.float64, device=c.device)
+    b = torch.as_tensor(b, dtype=torch.float64, device=c.device)
+    p = a * b
+
+    def split(x):
+        hi = x * 134217729.0                    # 2**27 + 1
+        hi = hi - (hi - x)
+        return hi, x - hi
+
+    (ah, al), (bh, bl) = split(a), split(b)
+    err = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    s = p + c
+    c_part = s - p
+    return s + (((p - (s - c_part)) + (c - c_part)) + err)
+
+
+def _two_over_pi_words() -> Tuple[int, ...]:
+    """Windows of 32 bits of the fraction of 2/pi, each 8 bits on from the
+    last (the first three shorter): the table of the exact reduction.
+    2/pi comes from Machin's formula in 320-bit integers."""
+    bits = 320
+
+    def arctan_inv(n: int) -> int:
+        term = (1 << bits) // n
+        total, k, sign = term, 1, -1
+        while term:
+            term //= n * n
+            k += 2
+            total += sign * (term // k)
+            sign = -sign
+        return total
+
+    pi = 4 * (4 * arctan_inv(5) - arctan_inv(239))
+    two_over_pi = (2 << (2 * bits)) // pi        # 2/pi in `bits` fraction bits
+    return tuple(((two_over_pi << (8 * (i + 1))) >> bits) & 0xFFFFFFFF
+                 for i in range(24))
+
+
+_INV_PIO2_WORDS = _two_over_pi_words()
+
+
+def _reduce_large(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(r, n) with y = r + n pi/2 exactly reduced, |r| <= pi/4, r in
+    float64, for |y| >= 120: a 32 x 96 -> 128 bit fixed-point product of
+    y's mantissa with the right window of 2/pi, kept modulo 2**64 in int64
+    (whose adds, products and left shifts wrap as unsigned ones do)."""
+    words = torch.tensor(_INV_PIO2_WORDS, dtype=torch.int64, device=y.device)
+    xi = y.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    idx = (xi >> 26) & 15
+    m = ((xi & 0xFFFFFF) | 0x800000) << ((xi >> 23) & 7)
+    res0 = (m * words[idx]) & 0xFFFFFFFF        # a 32-bit product
+    res0 = ((m * words[idx + 8]) >> 32) | (res0 << 32)
+    res0 = res0 + m * words[idx + 4]
+    n = ((res0 + (1 << 61)) >> 62) & 3
+    return (res0 - (n << 62)).to(torch.float64) * _PI63, n
+
+
+def _sincos(y: torch.Tensor, cos: bool) -> torch.Tensor:
+    """``sinf(y)`` or ``cosf(y)`` of a float32 tensor, bit for bit."""
+    y = y.to(_F32)
+    x = y.to(torch.float64)
+    ay = y.abs()
+    # |y| < 120: n = nearest integer to y 2/pi, from a truncation at 2**24
+    n = ((x * _HPI_INV_2P24).to(torch.int32).to(torch.int64)
+         + 0x800000) >> 24
+    r = _fma64(-n.to(torch.float64), _HPI, x)
+    r_large, n_large = _reduce_large(y)
+    large = ay >= 120.0
+    r = torch.where(large, r_large, r)
+    n = torch.where(large, n_large, n)
+    # the sign quadrant counts y's own sign on the exact path
+    quad = torch.where(large, n_large + (y.view(torch.int32) < 0).long(), n)
+    small = ay < 0.78125                       # below pi/4: no reduction
+    r = torch.where(small, x, r)
+    n = torch.where(small, 0, n)
+    quad = torch.where(small, 0, quad)
+    flip = (quad & 2) != 0                     # the negated cosine table
+    r_signed = torch.where(((quad + 1) & 2) != 0, -r, r)
+    r2 = r * r
+    r3 = r_signed * r2
+    s12 = _fma64(r2, _SIN_S[2], torch.full_like(r, _SIN_S[1]))
+    sin_v = _fma64(r3 * r2, s12, _fma64(r3, _SIN_S[0], r_signed))
+    one = torch.where(flip, -1.0, 1.0).to(torch.float64)
+    r4 = r2 * r2
+    cos_v = _fma64(r4 * r2, _fma64(r2, one * _COS_C[3], one * _COS_C[2]),
+                   _fma64(r4, one * _COS_C[1], _fma64(r2, one * _COS_C[0],
+                                                      one)))
+    odd = ((n ^ 1) if cos else n) & 1 != 0
+    v = torch.where(odd, cos_v, sin_v).to(_F32)
+    tiny = ay < 2.0 ** -12
+    v = torch.where(tiny, torch.ones_like(y) if cos else y, v)
+    return torch.where(torch.isfinite(y), v, torch.full_like(y, math.nan))
+
+
+def sin(x: torch.Tensor) -> torch.Tensor:
+    """``sin`` of float32 ``x`` as the reference evaluates it (no
+    gradient: the model takes it of constant rotary angles)."""
+    return _sincos(x, cos=False)
+
+
+def cos(x: torch.Tensor) -> torch.Tensor:
+    """``cos`` of float32 ``x`` as the reference evaluates it."""
+    return _sincos(x, cos=True)

@@ -1,5 +1,5 @@
-// Shared by flash_fwd.cu and flash_bwd.cu: the argument block, typed
-// loads and stores, and the tiling constants.
+// Shared by flash_fwd.cu, flash_bwd.cu and flash_q8.cu: the argument
+// block, typed loads and stores, and the tiling constants.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -28,7 +28,7 @@ struct FlashArgs {
 
 namespace flash {
 
-enum DType : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
+enum DType : int { kF32 = 0, kBF16 = 1, kF16 = 2, kI8 = 3 };
 
 constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;   // the TPU kernel's NEG_INF

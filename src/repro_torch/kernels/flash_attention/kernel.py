@@ -1,5 +1,5 @@
 """CUDA wrappers of the flash-attention kernels (``csrc/flash_fwd.cu``,
-``csrc/flash_bwd.cu``).
+``csrc/flash_bwd.cu``, ``csrc/flash_q8.cu``).
 
 ``flash_attention_nhd_cuda`` replaces the TPU kernel
 ``repro/kernels/flash_attention/kernel.py`` (``_flash_kernel``, kernel
@@ -7,10 +7,13 @@
 ``flash_attention_bwd_nhd_cuda`` replaces
 ``repro/kernels/flash_attention/kernel_bwd.py`` (``_dq_kernel`` and
 ``_dkv_kernel``, kernel 6): the recompute backward, one dQ pass and one
-dK/dV pass.  Both take the raw ``(H, S, d)`` layout of the TPU kernels
-(a batch folded into the head axes) and the same causal mask, aligned
-top-left.  Each library is built with ``nvcc`` at first use, never when
-this module is imported.
+dK/dV pass.  ``flash_attention_q8_nhd_cuda`` replaces
+``repro/kernels/flash_attention/kernel_q8.py`` (``_flash_q8_kernel``,
+kernel 5): kernel 4's forward over an int8 K/V cache with one float32
+scale per (kv head, position), dequantized per tile on chip.  All take
+the raw ``(H, S, d)`` layout of the TPU kernels (a batch folded into the
+head axes) and the same causal mask, aligned top-left.  Each library is
+built with ``nvcc`` at first use, never when this module is imported.
 """
 from __future__ import annotations
 
@@ -22,12 +25,15 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import common
-from repro_torch.kernels.flash_attention.ref import flash_bwd_ref, flash_fwd_ref
+from repro_torch.kernels.flash_attention.ref import (flash_bwd_ref,
+                                                     flash_fwd_ref,
+                                                     flash_q8_ref)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 HEADER = CSRC / "flash_common.cuh"
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_INT8 = 3       # flash::kI8, kernel 5's K/V words
 
 
 class FlashArgs(ctypes.Structure):
@@ -41,9 +47,10 @@ class FlashArgs(ctypes.Structure):
         + [("scale", ctypes.c_float)])
 
 
-def _signatures(entry: str):
-    return {entry: (ctypes.c_int, [ctypes.POINTER(FlashArgs), ctypes.c_int,
-                                   ctypes.c_void_p]),
+def _signatures(entry: str, scale_pointers: int = 0):
+    return {entry: (ctypes.c_int, [ctypes.POINTER(FlashArgs)]
+                    + [ctypes.c_void_p] * scale_pointers
+                    + [ctypes.c_int, ctypes.c_void_p]),
             "repro_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int])}
 
 
@@ -55,6 +62,11 @@ def fwd_library() -> common.BuiltLibrary:
 def bwd_library() -> common.BuiltLibrary:
     return common.load_library("flash_bwd", [CSRC / "flash_bwd.cu"],
                                _signatures("flash_backward"), [HEADER])
+
+
+def q8_library() -> common.BuiltLibrary:
+    return common.load_library("flash_q8", [CSRC / "flash_q8.cu"],
+                               _signatures("flash_forward_q8", 2), [HEADER])
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, dtypes) -> None:
@@ -71,7 +83,8 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtypes) -> None:
         raise ValueError(f"flash_attention: {name} must be contiguous")
 
 
-def _args(q, k, v, causal: bool, group: int) -> FlashArgs:
+def _args(q, k, v, causal: bool, group: int, kv_dtypes=_DTYPES
+          ) -> FlashArgs:
     hq, sq, d = q.shape
     hkv, sk, _ = k.shape
     if hq != group * hkv:
@@ -81,14 +94,15 @@ def _args(q, k, v, causal: bool, group: int) -> FlashArgs:
         raise ValueError(f"flash_attention: head width {d}; the kernels take "
                          f"1..{MAX_HEAD_DIM}")
     _check("q", q, (hq, sq, d), _DTYPES)
-    _check("k", k, (hkv, sk, d), _DTYPES)
-    _check("v", v, (hkv, sk, d), _DTYPES)
+    _check("k", k, (hkv, sk, d), kv_dtypes)
+    _check("v", v, (hkv, sk, d), kv_dtypes)
     if len({x.device for x in (q, k, v)}) != 1:
         raise ValueError("flash_attention: inputs lie on different devices")
     return FlashArgs(
         q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), hq=hq, hkv=hkv,
         sq=sq, sk=sk, d=d, group=group, causal=int(causal),
-        dt_q=_DTYPES[q.dtype], dt_k=_DTYPES[k.dtype], dt_v=_DTYPES[v.dtype],
+        dt_q=_DTYPES[q.dtype], dt_k=_DTYPES.get(k.dtype, _INT8),
+        dt_v=_DTYPES.get(v.dtype, _INT8),
         scale=float(np.float32(1.0 / (d ** 0.5))))
 
 
@@ -139,6 +153,30 @@ def flash_attention_bwd_nhd_cuda(q: torch.Tensor, k: torch.Tensor,
     return dq, dk, dv
 
 
+def flash_attention_q8_nhd_cuda(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, k_scale: torch.Tensor,
+                                v_scale: torch.Tensor, *, causal: bool = True,
+                                group: int = 1) -> torch.Tensor:
+    """q (Hq, Sq, d) float; k/v (Hkv, Sk, d) int8 with float32 scales
+    (Hkv, Sk), one per cached vector -> out (Hq, Sq, d) in q's dtype.
+    Forward only, as the TPU kernel."""
+    args = _args(q, k, v, causal, group, kv_dtypes=(torch.int8,))
+    for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
+        _check(name, s, tuple(k.shape[:2]), (torch.float32,))
+        if s.device != q.device:
+            raise ValueError(f"flash_attention_q8: {name} lies on "
+                             f"{s.device}, q on {q.device}")
+    out = torch.empty_like(q)
+    args.out, args.dt_out = out.data_ptr(), _DTYPES[q.dtype]
+    lib = q8_library().lib
+    err = lib.flash_forward_q8(ctypes.byref(args), common.ptr(k_scale),
+                               common.ptr(v_scale), q.device.index,
+                               common.stream_ptr(q.device))
+    common.check_cuda(lib, err, "flash_attention_q8 launch")
+    FLASH_Q8.launches += 1
+    return out
+
+
 def _fwd_plain(q, k, v, *, causal: bool = True, group: int = 1,
                return_residuals: bool = False):
     out, lse = flash_fwd_ref(q, k, v, causal=causal, group=group)
@@ -157,3 +195,9 @@ FLASH_BWD = common.register(common.KernelSpec(
     replaces="src/repro/kernels/flash_attention/kernel_bwd.py:141",
     source="src/repro_torch/kernels/flash_attention/csrc/flash_bwd.cu"))
 
+
+FLASH_Q8 = common.register(common.KernelSpec(
+    name="flash_attention_q8", kernel=flash_attention_q8_nhd_cuda,
+    plain=flash_q8_ref,
+    replaces="src/repro/kernels/flash_attention/kernel_q8.py:81",
+    source="src/repro_torch/kernels/flash_attention/csrc/flash_q8.cu"))

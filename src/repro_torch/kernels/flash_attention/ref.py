@@ -3,13 +3,15 @@
 Two kinds, as in the JAX package:
 
 * the oracles, ``attention_nhd_ref`` (materialised scores, the causal
-  mask aligned bottom-right, ``tril(k=Sk-Sq)``) and ``attention_bwd_ref``
-  (autograd of it) — ``repro/kernels/flash_attention/ref.py``;
-* the plain versions of the two kernels, with the kernels' signatures:
-  :func:`flash_fwd_ref` returns ``(out, lse)`` and :func:`flash_bwd_ref`
-  takes ``(q, k, v, do, lse, delta)``.  They follow the TPU kernels'
-  causal mask, ``qpos >= kpos`` aligned top-left
-  (``kernel.py:57-60``, ``kernel_bwd.py:64-67``).  The two alignments
+  mask aligned bottom-right, ``tril(k=Sk-Sq)``), ``attention_q8_nhd_ref``
+  (the same over a dequantized int8 K/V) and ``attention_bwd_ref``
+  (autograd of the first) — ``repro/kernels/flash_attention/ref.py``;
+* the plain versions of the three kernels, with the kernels' signatures:
+  :func:`flash_fwd_ref` returns ``(out, lse)``, :func:`flash_bwd_ref`
+  takes ``(q, k, v, do, lse, delta)`` and :func:`flash_q8_ref` takes
+  ``(q, k, v, k_scale, v_scale)``.  They follow the TPU kernels' causal
+  mask, ``qpos >= kpos`` aligned top-left (``kernel.py:57-60``,
+  ``kernel_bwd.py:64-67``, ``kernel_q8.py:57-60``).  The two alignments
   agree when Sq == Sk and differ when causal with Sk > Sq (ROADMAP queue
   3); the kernels follow the TPU kernels, not the oracle.
 
@@ -47,6 +49,22 @@ def attention_nhd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         s = torch.where(mask[None], s, torch.full((), NEG_INF, device=q.device))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("hqk,hkd->hqd", p, vv).to(q.dtype)
+
+
+def _dequantize(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """int8 (H, S, d) times one float32 scale per (head, position)."""
+    return x.to(_F32) * scale.to(_F32)[..., None]
+
+
+def attention_q8_nhd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         k_scale: torch.Tensor, v_scale: torch.Tensor, *,
+                         causal: bool = True, group: int = 1
+                         ) -> torch.Tensor:
+    """Oracle of the quantized-cache kernel: dequantize (k/v (Hkv, Sk, d)
+    int8, scales (Hkv, Sk)), then :func:`attention_nhd_ref`."""
+    return attention_nhd_ref(q, _dequantize(k, k_scale),
+                             _dequantize(v, v_scale), causal=causal,
+                             group=group)
 
 
 def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -110,3 +128,13 @@ def flash_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk = torch.einsum("hqk,hqd->hkd", ds, q32).reshape(hkv, group, sk, d)
     dv = torch.einsum("hqk,hqd->hkd", p, do32).reshape(hkv, group, sk, d)
     return dq, dk.sum(1), dv.sum(1)
+
+
+def flash_q8_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 k_scale: torch.Tensor, v_scale: torch.Tensor, *,
+                 causal: bool = True, group: int = 1) -> torch.Tensor:
+    """Plain version of kernel 5: kernel 4's forward (top-left causal
+    mask, ``denom = max(l, 1e-30)``) over K/V dequantized in float32, one
+    scale per (kv head, position); out in q's dtype."""
+    return flash_fwd_ref(q, _dequantize(k, k_scale), _dequantize(v, v_scale),
+                         causal=causal, group=group)[0]

@@ -1,9 +1,11 @@
 """GQA attention: naive, chunked (online softmax) and single-token decode.
 
 Layouts follow the JAX reference: activations (B, S, H, dh), caches
-(B, S_max, Hkv, dh).  Only the dense, unquantized, unpaged cache is
-ported; the int8 and paged formats come with ROADMAP queue 1, items 11
-and 13.
+(B, S_max, Hkv, dh).  The decode cache is stored in the model's dtype,
+as int8 with one float32 scale per (position, kv head) vector (the
+per-block format of :mod:`repro_torch.core.quant_cache`), or as int8 at
+the legacy fixed Q3.4 scale (:data:`KV_Q_SCALE`, the paper's FxP8 cache
+study).  Paged caches come with ROADMAP queue 1, item 13.
 """
 from __future__ import annotations
 
@@ -13,10 +15,28 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig, ExecutionPolicy
+from repro_torch.core.quant_cache import dequantize_blocked, quantize_blocked
 from repro_torch.models import layers as L
 
 NEG_INF = -1e30
 FULL_WINDOW = 2 ** 30
+# FxP8 (Q3.4) K/V-cache quantization: the paper's 8-bit format applied to
+# the decode cache (``ArchConfig.kv_cache_bits == 8``).
+KV_Q_SCALE = 16.0
+
+
+def quantize_kv(x: torch.Tensor) -> torch.Tensor:
+    """The legacy fixed-scale format: ``round(x * 16)`` clipped to
+    [-127, 127], as int8."""
+    return torch.clamp(torch.round(x.to(torch.float32) * KV_Q_SCALE),
+                       -127, 127).to(torch.int8)
+
+
+def dequantize_kv(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of :func:`quantize_kv`; a float cache is only cast."""
+    if x.dtype != torch.int8:
+        return x.to(dtype)
+    return (x.to(torch.float32) * (1.0 / KV_Q_SCALE)).to(dtype)
 
 
 def _causal_window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window
@@ -42,16 +62,16 @@ class AttnParams(NamedTuple):
 
 
 def qkv(x: torch.Tensor, p: AttnParams, cfg: ArchConfig, pol: ExecutionPolicy,
-        positions: torch.Tensor
+        rope: Tuple[torch.Tensor, torch.Tensor]
         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    dh = cfg.head_dim_
+    """The projections, heads split; q and k rotated by ``rope``, the
+    (sin, cos) of :func:`layers.rope_sincos` at the tokens' positions."""
     q = _split_heads(L.dense(x, p.wq, pol, p.bq), cfg.n_heads)
     k = _split_heads(L.dense(x, p.wk, pol, p.bk), cfg.n_kv_heads)
     v = _split_heads(L.dense(x, p.wv, pol, p.bv), cfg.n_kv_heads)
     if cfg.family != "ssm":
-        ang = L.rope_angles(positions, dh, cfg.rope_theta)
-        q = L.apply_rope(q, ang)
-        k = L.apply_rope(k, ang)
+        q = L.apply_rope(q, rope)
+        k = L.apply_rope(k, rope)
     return q, k, v
 
 
@@ -148,7 +168,9 @@ def _attend_decode(q, keys, vals, pos: torch.Tensor, pol: ExecutionPolicy,
 
 def decode_attention(q, k_new, v_new, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, pos: torch.Tensor,
-                     cfg: ArchConfig, pol: ExecutionPolicy, window
+                     cfg: ArchConfig, pol: ExecutionPolicy, window,
+                     scale_k: Optional[torch.Tensor] = None,
+                     scale_v: Optional[torch.Tensor] = None
                      ) -> torch.Tensor:
     """q/k_new/v_new: (B, 1, H*, dh); cache: (B, S, Hkv, dh).
 
@@ -156,14 +178,35 @@ def decode_attention(q, k_new, v_new, cache_k: torch.Tensor,
     JAX reference returns new arrays; the port updates its own state's
     caches instead of copying them every step), then attends.  ``pos`` is
     the tokens-seen counter: a scalar, or (B,) per serving slot.
+
+    With ``scale_k``/``scale_v`` (B, S, Hkv, 1) the cache is the per-block
+    int8 format: each new K/V vector is quantized on write, its scale
+    lands at the same ring slot, and the whole cache is dequantized into
+    ``q.dtype`` on read.  Without them an int8 cache is the legacy
+    fixed-scale format (:func:`quantize_kv`).
     """
     slot = torch.remainder(pos, cache_k.shape[1])
+    blocked = scale_k is not None
+    if blocked:
+        (k_w, k_s), (v_w, v_s) = quantize_blocked(k_new), quantize_blocked(v_new)
+    elif cache_k.dtype == torch.int8:
+        k_w, v_w = quantize_kv(k_new), quantize_kv(v_new)
+    else:
+        k_w, v_w = k_new.to(cache_k.dtype), v_new.to(cache_v.dtype)
+    writes = [(cache_k, k_w), (cache_v, v_w)]
+    if blocked:
+        writes += [(scale_k, k_s), (scale_v, v_s)]
     if pos.dim() == 1:
         rows = torch.arange(q.shape[0], device=q.device)
-        cache_k[rows, slot] = k_new[:, 0].to(cache_k.dtype)
-        cache_v[rows, slot] = v_new[:, 0].to(cache_v.dtype)
+        for cache, new in writes:
+            cache[rows, slot] = new[:, 0]
     else:
-        cache_k[:, slot] = k_new[:, 0].to(cache_k.dtype)
-        cache_v[:, slot] = v_new[:, 0].to(cache_v.dtype)
-    return _attend_decode(q, cache_k.to(q.dtype), cache_v.to(q.dtype), pos,
-                          pol, window)
+        for cache, new in writes:
+            cache[:, slot] = new[:, 0]
+    if blocked:
+        keys = dequantize_blocked(cache_k, scale_k, q.dtype)
+        vals = dequantize_blocked(cache_v, scale_v, q.dtype)
+    else:
+        keys = dequantize_kv(cache_k, q.dtype)
+        vals = dequantize_kv(cache_v, q.dtype)
+    return _attend_decode(q, keys, vals, pos, pol, window)

@@ -8,6 +8,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ExecutionPolicy
+from repro_torch.core import libm
 from repro_torch.core.activations import activate
 from repro_torch.core.quantization import QuantPolicy, quantized_dense
 from repro_torch.kernels.cordic_mac.ops import cordic_matmul
@@ -74,20 +75,41 @@ def residual_norm(x: torch.Tensor, y: torch.Tensor, gamma: torch.Tensor,
 
 def rope_angles(positions: torch.Tensor, head_dim: int, theta: float
                 ) -> torch.Tensor:
-    """(..., head_dim/2) rotary angles for integer positions."""
+    """(..., head_dim/2) rotary angles for integer positions.
+
+    The inverse frequencies ``1 / theta**(2i / head_dim)`` are constants
+    of the reference's compiled model, which folds them in float64 and
+    rounds once to float32; so does this."""
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
                             device=positions.device) / head_dim
-    inv_freq = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                            device=positions.device),
-                               exponent)
+    inv_freq = (1.0 / torch.pow(torch.tensor(theta, dtype=torch.float64,
+                                             device=positions.device),
+                                exponent.to(torch.float64))).to(torch.float32)
     return positions.to(torch.float32)[..., None] * inv_freq
 
 
-def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
-    """x: (..., S, H, D); angles: (..., S, D/2) broadcast over heads."""
-    sin = torch.sin(angles)[..., None, :].to(x.dtype)
-    cos = torch.cos(angles)[..., None, :].to(x.dtype)
+def rope_sincos(positions: torch.Tensor, head_dim: int, theta: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sin, cos) of :func:`rope_angles`, float32 (..., S, head_dim/2):
+    the reference's ``sinf``/``cosf`` (:mod:`repro_torch.core.libm`).  A
+    model call computes them once and every layer's :func:`apply_rope`
+    reads them."""
+    angles = rope_angles(positions, head_dim, theta)
+    return libm.sin(angles), libm.cos(angles)
+
+
+def apply_rope(x: torch.Tensor, sincos: Tuple[torch.Tensor, torch.Tensor]
+               ) -> torch.Tensor:
+    """x: (..., S, H, D); ``sincos`` from :func:`rope_sincos`, (..., S,
+    D/2) each, broadcast over heads.  In float32 the rotation's first
+    product of each sum is fused with the add, as the reference's
+    compiler contracts them."""
+    sin = sincos[0][..., None, :].to(x.dtype)
+    cos = sincos[1][..., None, :].to(x.dtype)
     x1, x2 = torch.chunk(x, 2, dim=-1)
+    if x.dtype == torch.float32:
+        return torch.cat([libm.fma(x1, cos, -(x2 * sin)),
+                          libm.fma(x1, sin, x2 * cos)], dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 

@@ -14,7 +14,8 @@ from repro_torch.models import transformer as T
 @dataclasses.dataclass(frozen=True)
 class DenseCacheOps:
     """Per-slot state in the classic unpaged layout: ``max_seq``-long K/V
-    caches (dense) or the O(1) recurrent state (ssm), native or int8."""
+    caches (dense; native, int8 or fxp8) or the O(1) recurrent state
+    (ssm; native or int8)."""
     cfg: ArchConfig
     device: torch.device
 
@@ -52,10 +53,12 @@ class Model:
         """Same architecture with the serving-cache storage format swapped.
 
         Accepts a :class:`CacheSpec` or the legacy string spelling:
-        ``"int8"`` turns on the per-block-scaled quantized state
-        (:mod:`repro_torch.core.quant_cache`); ``None`` or a float name
-        keeps full precision.  Formats the port does not run yet raise
-        when the new model is built.
+        ``"int8"`` turns on the per-block-scaled quantized K/V cache or
+        recurrent state (:mod:`repro_torch.core.quant_cache`); ``None`` or
+        a float name keeps full precision.  Parameters are unchanged; only
+        the decode state's layout and its read and write paths differ.
+        Formats the port does not run yet (paged) raise when the new model
+        is built.
         """
         if isinstance(cache_dtype, CacheSpec):
             return self.with_cache_spec(cache_dtype)

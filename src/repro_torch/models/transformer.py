@@ -5,10 +5,13 @@ Parameters are a nested dict of tensors with the JAX reference's layout:
 every per-layer leaf is stacked along a leading ``layers`` axis, and the
 layers run as a plain Python loop over it.  The dense family mixes with
 GQA attention over a K/V cache; the ssm family (rwkv6) with the RWKV6
-time-mix and channel-mix over an O(1) recurrent state, stored as float32
-or, under the int8 cache (``CacheSpec(dtype="int8")``), as int8 with one
-float32 scale per state row.  The other families (moe, hybrid, audio,
-vlm) are refused here; ROADMAP queue 1 items 8 and 10 port them.
+time-mix and channel-mix over an O(1) recurrent state.  Under the int8
+cache (``CacheSpec(dtype="int8")``) the K/V cache is int8 with one
+float32 scale per (position, kv head) vector, and the recurrent state
+int8 with one float32 scale per state row; the legacy ``"fxp8"`` format
+stores the K/V cache as int8 at a fixed Q3.4 scale.  The other families
+(moe, hybrid, audio, vlm) and paged caches are refused here; ROADMAP
+queue 1 items 8, 10 and 13 port them.
 """
 from __future__ import annotations
 
@@ -43,15 +46,6 @@ def check_supported(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: cache {spec} is not ported yet; the port serves "
             f"unpaged caches (ROADMAP queue 1, item 13)")
-    if spec.dtype == "int8" and cfg.family != "ssm":
-        raise NotImplementedError(
-            f"{cfg.name}: the int8 K/V cache is not ported yet; the port "
-            f"serves the int8 recurrent state of the ssm family only "
-            f"(ROADMAP queue 1, item 11, with flash_attention_q8)")
-    if spec.dtype == "fxp8":
-        raise NotImplementedError(
-            f"{cfg.name}: the legacy fixed-scale fxp8 cache is not ported "
-            f"yet (ROADMAP queue 1, item 11)")
     if cfg.dtype not in _DTYPES:
         raise ValueError(f"unknown dtype {cfg.dtype!r}")
 
@@ -168,12 +162,19 @@ def _ffn(x: Tensor, attn_out: Tensor, bp: Dict[str, Any], cfg: ArchConfig,
 # Full-sequence forward
 # ---------------------------------------------------------------------------
 
+def _rope(positions: Tensor, cfg: ArchConfig) -> Tuple[Tensor, Tensor]:
+    """The rotary (sin, cos) at ``positions``, once per model call."""
+    return L.rope_sincos(positions, cfg.head_dim_, cfg.rope_theta)
+
+
 def block_forward(x: Tensor, bp: Dict[str, Any], cfg: ArchConfig,
-                  pol: ExecutionPolicy, positions: Tensor, window
+                  pol: ExecutionPolicy, positions: Tensor, window,
+                  rope: Tuple[Tensor, Tensor]
                   ) -> Tuple[Tensor, Tensor, Tensor]:
-    """One dense decoder block over a full sequence.  Returns (x, k, v)."""
+    """One dense decoder block over a full sequence; ``rope`` is
+    :func:`_rope` of ``positions``.  Returns (x, k, v)."""
     h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
-    q, k, v = A.qkv(h, _attn_params(bp), cfg, pol, positions)
+    q, k, v = A.qkv(h, _attn_params(bp), cfg, pol, rope)
     ctx = A.attention(q, k, v, cfg, pol, positions, positions, window)
     attn_out = L.dense(ctx.reshape(*x.shape[:2], -1), bp["attn"]["wo"], pol)
     return _ffn(x, attn_out, bp, cfg, pol), k, v
@@ -216,12 +217,13 @@ def _blocks(x: Tensor, params: Dict[str, Any], cfg: ArchConfig,
     s = x.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     windows = layer_windows(cfg, s)
+    rope = _rope(positions, cfg) if cfg.family != "ssm" else None
 
     def block(x, bp, window):
         if cfg.family == "ssm":
             return ssm_block(x, bp, cfg, pol,
                              *_zero_rec(cfg, x.shape[0], x))[0]
-        return block_forward(x, bp, cfg, pol, positions, window)[0]
+        return block_forward(x, bp, cfg, pol, positions, window, rope)[0]
 
     remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
@@ -263,8 +265,9 @@ class DecodeState(NamedTuple):
     """Stacked (n_layers leading dim) decode state.
 
     The dense family fills the K/V caches, the ssm family the recurrent
-    fields; the others stay ``None``.  ``wkv_scale`` carries the int8
-    state's per-row float32 scales (``CacheSpec(dtype="int8")`` only).
+    fields; the others stay ``None``.  The ``*scale*`` fields carry the
+    per-block float32 scales of the int8 cache (``CacheSpec(dtype=
+    "int8")`` only).
     """
     cache_k: Optional[Tensor] = None    # (L, B, S, Hkv, dh)
     cache_v: Optional[Tensor] = None
@@ -272,6 +275,8 @@ class DecodeState(NamedTuple):
     x_prev: Optional[Tensor] = None     # (L, B, D) time-mix boundary token
     cm_prev: Optional[Tensor] = None    # (L, B, D) channel-mix boundary
     wkv: Optional[Tensor] = None        # (L, B, H, dk, dk) rwkv state
+    scale_k: Optional[Tensor] = None    # (L, B, S, Hkv, 1) int8 mode only
+    scale_v: Optional[Tensor] = None    # (L, B, S, Hkv, 1) int8 mode only
     wkv_scale: Optional[Tensor] = None  # (L, B, H, dk, 1) int8 mode only
 
 
@@ -280,9 +285,10 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_seq: int,
     check_supported(cfg)
     dt = dtype_of(cfg)
     pos = torch.zeros((), dtype=torch.int32, device=device)
+    spec = cfg.cache_spec()
+    qc = spec.quantized
     if cfg.family == "ssm":
         lr, d, dh = cfg.n_layers, cfg.d_model, cfg.head_dim_
-        qc = cfg.cache_spec().quantized
         shape = (lr, batch, cfg.n_heads, dh, dh)
         return DecodeState(
             pos=pos,
@@ -293,10 +299,16 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_seq: int,
             wkv_scale=(torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
                                    device=device) if qc else None))
     shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim_)
+    kv_dt = torch.int8 if spec.dtype in ("int8", "fxp8") else dt
+
+    def scales():
+        return (torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
+                            device=device) if qc else None)
+
     return DecodeState(
-        cache_k=torch.zeros(shape, dtype=dt, device=device),
-        cache_v=torch.zeros(shape, dtype=dt, device=device),
-        pos=pos)
+        cache_k=torch.zeros(shape, dtype=kv_dt, device=device),
+        cache_v=torch.zeros(shape, dtype=kv_dt, device=device),
+        scale_k=scales(), scale_v=scales(), pos=pos)
 
 
 def _store_rec(state: DecodeState, i: int, xp: Tensor, cp: Tensor,
@@ -316,6 +328,28 @@ def _layer_wkv(state: DecodeState, i: int) -> Tensor:
     if state.wkv_scale is None:
         return state.wkv[i]
     return dequantize_blocked(state.wkv[i], state.wkv_scale[i])
+
+
+def _layer_scales(state: DecodeState, i: int) -> Tuple[Tensor, ...]:
+    """Layer ``i``'s K/V scale views (empty without per-block scales)."""
+    if state.scale_k is None:
+        return ()
+    return state.scale_k[i], state.scale_v[i]
+
+
+def _store_kv(state: DecodeState, i: int, k: Tensor, v: Tensor) -> None:
+    """Write a prefill's layer-``i`` K/V (B, s, Hkv, dh) into positions
+    [0, s) of ``state``'s caches, quantized as the cache format asks: per
+    vector with its scale (int8), or at the fixed Q3.4 scale (fxp8)."""
+    s = k.shape[1]
+    for cache, scale, x in ((state.cache_k, state.scale_k, k),
+                            (state.cache_v, state.scale_v, v)):
+        if scale is not None:
+            cache[i, :, :s], scale[i, :, :s] = quantize_blocked(x)
+        elif cache.dtype == torch.int8:
+            cache[i, :, :s] = A.quantize_kv(x)
+        else:
+            cache[i, :, :s] = x
 
 
 def decode_step(params: Dict[str, Any], state: DecodeState,
@@ -348,13 +382,14 @@ def decode_step(params: Dict[str, Any], state: DecodeState,
             windows = layer_windows(cfg, cache_len)
         positions = (pos[:, None].to(torch.int32) if pos.dim() == 1
                      else pos.reshape(1).to(torch.int32))
+        rope = _rope(positions, cfg)
         for i in range(cfg.n_layers):
             bp = _layer(params["blocks"], i)
             h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
-            q, k, v = A.qkv(h, _attn_params(bp), cfg, pol, positions)
-            ctx = A.decode_attention(q, k, v, state.cache_k[i],
-                                     state.cache_v[i], pos, cfg, pol,
-                                     int(windows[i]))
+            q, k, v = A.qkv(h, _attn_params(bp), cfg, pol, rope)
+            ctx = A.decode_attention(
+                q, k, v, state.cache_k[i], state.cache_v[i], pos, cfg, pol,
+                int(windows[i]), *_layer_scales(state, i))
             x = _ffn(x, L.dense(ctx.reshape(b, 1, -1), bp["attn"]["wo"], pol),
                      bp, cfg, pol)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
@@ -368,7 +403,9 @@ def prefill(params: Dict[str, Any], batch: Dict[str, Tensor],
             ) -> Tuple[Tensor, DecodeState]:
     """Full-sequence forward that also populates the decode state.
 
-    Dense: the per-layer K/V land in a cache of length ``S + headroom``.
+    Dense: the per-layer K/V land in a cache of length ``S + headroom``
+    (quantized there under the int8 and fxp8 formats; the headroom
+    positions and their scales stay 0).
     Ssm: the sequence folds into the O(1) recurrent state (quantized once
     at the end of each layer in the int8 mode).  ``lengths`` (B,) marks
     each row's true prompt length in a batch whose prompts are
@@ -395,11 +432,11 @@ def prefill(params: Dict[str, Any], batch: Dict[str, Tensor],
     else:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
         windows = layer_windows(cfg, s)
+        rope = _rope(positions, cfg)
         for i in range(cfg.n_layers):
             x, k, v = block_forward(x, _layer(params["blocks"], i), cfg, pol,
-                                    positions, int(windows[i]))
-            state.cache_k[i, :, :s] = k
-            state.cache_v[i, :, :s] = v
+                                    positions, int(windows[i]), rope)
+            _store_kv(state, i, k, v)
     if lengths is None:
         x_last = x[:, -1:, :]
         pos = torch.tensor(s, dtype=torch.int32, device=x.device)
@@ -430,9 +467,11 @@ def slot_update(state: DecodeState, sub: DecodeState, slots) -> DecodeState:
     ``sub`` is a prefill over a (bucket-padded) batch; ``slots`` (B_sub,)
     maps each ``sub`` row to a target slot.  Indices >= max_batch are
     dropped (the engine pads admission groups with a sentinel).  A prefill
-    cache shorter than the slot cache is zero-padded along the sequence;
-    the recurrent leaves (token-shift boundaries, wkv state and its
-    scales) scatter along their batch axis.
+    cache (and its scales) shorter than the slot cache is zero-padded
+    along the sequence; the recurrent leaves (token-shift boundaries, wkv
+    state and its scales) scatter along their batch axis.  Leaves move
+    word for word: both states come from one model, so a leaf's dtype
+    matches, and a float leaf never lands in an int8 one by a cast.
     """
     slots = torch.as_tensor(slots, dtype=torch.long)
     keep = (slots >= 0) & (slots < state.pos.shape[0])
@@ -444,16 +483,20 @@ def slot_update(state: DecodeState, sub: DecodeState, slots) -> DecodeState:
         if s_src > s_tgt:
             raise ValueError(f"prefill cache ({s_src}) exceeds slot cache "
                              f"({s_tgt}); raise the engine's max_seq")
-    for name in ("cache_k", "cache_v", "x_prev", "cm_prev", "wkv",
-                 "wkv_scale"):
+    for name in ("cache_k", "cache_v", "scale_k", "scale_v", "x_prev",
+                 "cm_prev", "wkv", "wkv_scale"):
         tgt, src = getattr(state, name), getattr(sub, name)
         if tgt is None or src is None:
             continue
-        if name.startswith("cache_"):
+        if tgt.dtype != src.dtype:
+            raise ValueError(f"slot_update: {name} is {src.dtype} in the "
+                             f"prefill state and {tgt.dtype} in the slot "
+                             f"state; both must come from one cache format")
+        if name.startswith(("cache_", "scale_")):
             tgt[:, dst] = 0
-            tgt[:, dst, :s_src] = src[:, rows_dev].to(tgt.dtype)
+            tgt[:, dst, :s_src] = src[:, rows_dev]
         else:
-            tgt[:, dst] = src[:, rows_dev].to(tgt.dtype)
+            tgt[:, dst] = src[:, rows_dev]
     pos = sub.pos.expand(slots.shape) if sub.pos.dim() == 0 else sub.pos
     state.pos[dst] = pos[rows_dev].to(state.pos.dtype)
     return state

@@ -23,8 +23,10 @@ Per-request outputs equal single-stream decoding (see
 ``tests/test_torch_serving.py`` and ``tests/test_torch_ssm.py``).
 Speculative decoding, paged caches, snapshots, backpressure and the
 serving mesh are not ported yet; :class:`ServeConfig` refuses their
-knobs, and the model the int8 K/V cache and paged caches, naming the
-ROADMAP item.
+knobs, and the model paged caches, naming the ROADMAP item.  The int8
+cache (``cache_dtype="int8"`` or ``cache=CacheSpec(dtype="int8")``)
+serves both families: the K/V cache of the dense family, the recurrent
+state of the ssm family.
 """
 from __future__ import annotations
 
@@ -151,7 +153,8 @@ class ServeEngine:
         config = config or ServeConfig()
         self.config = config
         # the cache format, as the reference applies it: the model with
-        # its state stored as the config asks (int8: ~4x smaller state)
+        # its state stored as the config asks (int8: a bf16 K/V cache ~2x,
+        # a float32 recurrent state ~4x smaller)
         if config.cache is not None:
             model = model.with_cache_spec(config.cache)
         elif config.cache_dtype is not None:

@@ -124,6 +124,50 @@ def test_exact_sigmoid_and_silu_match_reference(dtype, rng):
     torch.testing.assert_close(g, s * (1 - s))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_exact_tanh_and_gelu_match_reference(dtype, rng):
+    """The exact (policy-free) tanh and gelu are the reference's
+    ``jnp.tanh`` (:func:`libm.tanh`) and ``jax.nn.gelu(approximate=True)``
+    spelled out op by op: bit-equal on 40 k inputs and the edges, where
+    ``torch.tanh`` and ``F.gelu`` differ in the last bits; gradients stay
+    torch's."""
+    x = np.concatenate([rng.normal(0.0, 3.0, 40000), rng.uniform(-9, 9, 4000),
+                        [0.0, -0.0, 7.998811721801758, -20.0, 1e-30, np.inf,
+                         -np.inf, np.nan]]).astype(np.float32)
+    jx = jnp.asarray(x).astype(dtype)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    for name in ("tanh", "gelu"):
+        got = ta.activate(tx, name)
+        assert got.dtype == tx.dtype
+        _same(got.to(torch.float32),
+              np.asarray(ja.activate(jx, name).astype(jnp.float32)))
+    tx = torch.from_numpy(x[:64]).requires_grad_(True)
+    g, = torch.autograd.grad(ta.activate(tx, "gelu").sum(), tx)
+    tx2 = tx.detach().requires_grad_(True)
+    want, = torch.autograd.grad(
+        torch.nn.functional.gelu(tx2, approximate="tanh").sum(), tx2)
+    torch.testing.assert_close(g, want)
+
+
+def test_libm_sin_cos_match_reference(rng):
+    """The rotary embedding's ``jnp.sin``/``jnp.cos`` (the C library's
+    ``sinf``/``cosf``): bit-equal on both reductions (below and from 120),
+    the thresholds, huge arguments, signed zeros, infinities and NaN;
+    eager and jitted alike."""
+    x = np.concatenate([
+        rng.uniform(-1, 1, 20000), rng.uniform(-130, 130, 40000),
+        rng.uniform(-5000, 5000, 20000),
+        np.exp(rng.uniform(-30, 88, 10000)) * rng.choice([-1, 1], 10000),
+        np.arange(-300, 300), [0.0, -0.0, 2.0 ** -12, 2.0 ** -13, 120.0,
+                               -120.0, 119.99999, 0.78125, 0.7853982, 3e38,
+                               np.inf, -np.inf, np.nan]]).astype(np.float32)
+    for name in ("sin", "cos"):
+        got = getattr(libm, name)(torch.from_numpy(x))
+        assert got.dtype == torch.float32
+        _same(got, getattr(jnp, name)(jnp.asarray(x)))
+        _same(got, jax.jit(getattr(jnp, name))(jnp.asarray(x)))
+
+
 def test_libm_log2_is_not_exact_at_powers_of_two():
     """The reference's log2(2**-15) is -14.999999, so ceil gives -14; the
     port must give the same, not the exact exponent."""

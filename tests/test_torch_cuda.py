@@ -23,8 +23,10 @@ from repro_torch.configs import (CORDIC_EXEC, CacheSpec, ExecutionPolicy,
 from repro_torch.core import activations as acts
 from repro_torch.core import fixed_point as fxp
 from repro_torch.core import quantization as quant
+from repro_torch.core.quant_cache import quantize_blocked
 from repro_torch.kernels import (common, cordic_act, cordic_softmax,
-                                 flash_attention, wkv, wkv_q8)
+                                 flash_attention, flash_attention_q8, wkv,
+                                 wkv_q8)
 from repro_torch.kernels.cordic_act.ops import cordic_act_raw
 from repro_torch.kernels.cordic_act.ref import cordic_act_raw_ref
 from repro_torch.kernels.cordic_mac import ops
@@ -35,7 +37,8 @@ from repro_torch.kernels.wkv import kernel as wkv_kernel
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention.ops import exact_attention
 from repro_torch.kernels.flash_attention.ref import (flash_bwd_ref,
-                                                     flash_fwd_ref)
+                                                     flash_fwd_ref,
+                                                     flash_q8_ref)
 from repro_torch.kernels.wkv.ops import exact_wkv
 from repro_torch.kernels.wkv.ref import (wkv_q8_ref, wkv_recurrence_bwd_ref,
                                          wkv_recurrence_ref)
@@ -587,3 +590,189 @@ def test_reduced_training_on_card(cuda, arch):
 def _copy(tree, device):
     return {k: (_copy(v, device) if isinstance(v, dict) else
                 v.to(device, copy=True)) for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# Kernel 5: flash attention over an int8 K/V cache; the int8 K/V cache
+# ---------------------------------------------------------------------------
+
+def _q8_close(got, want, dtype):
+    """float32 within atol = rtol = 2e-4 (kernel 4's band); a bf16 output
+    within atol 2e-4 plus one bf16 step of the value."""
+    rtol = FLASH_TOL if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=FLASH_TOL)
+
+
+def _q8_raw(gen, hq, hkv, sq, sk, d, dtype, dev):
+    """q (Hq, Sq, d) in ``dtype``; int8 k, v (Hkv, Sk, d) and their scales
+    (Hkv, Sk) from ``quantize_blocked``, positions 0 and 3 all zero."""
+    q = torch.randn((hq, sq, d), generator=gen, device=dev).to(dtype)
+    out = [q]
+    for _ in range(2):
+        x = 2 * torch.randn((hkv, sk, d), generator=gen, device=dev)
+        x[:, [p for p in (0, 3) if p < sk]] = 0
+        w, s = quantize_blocked(x)
+        out += [w, s[..., 0].contiguous()]
+    q, kw, ks, vw, vs = out
+    return q, kw, vw, ks, vs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,sq,sk,d,causal", [
+    (4, 4, 64, 64, 16, True), (8, 2, 64, 64, 16, False),
+    (16, 1, 33, 70, 8, True), (32, 2, 16, 16, 128, True),
+    (32, 2, 1, 64, 128, False), (32, 2, 1, 4096, 128, False),
+    (32, 2, 130, 130, 128, True), (2, 1, 40, 17, 256, True),
+    (6, 3, 50, 50, 100, False)])
+def test_flash_q8_kernel_matches_plain_on_card(cuda, hq, hkv, sq, sk, d,
+                                               causal, dtype):
+    """Kernel 5 against its plain version on the same inputs: glm4-9b's
+    prefill and decode shapes (32 q / 2 kv heads of 128) among them."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(hq * sq + d)
+    x = _q8_raw(gen, hq, hkv, sq, sk, d, dtype, cuda)
+    common.reset_counts()
+    got = flash_kernel.flash_attention_q8_nhd_cuda(*x, causal=causal,
+                                                   group=hq // hkv)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (hq, sq, d)
+    _q8_close(got, flash_q8_ref(*x, causal=causal, group=hq // hkv), dtype)
+    spec = common.get_kernel("flash_attention_q8")
+    assert (spec.launches, spec.plain_calls) == (1, 0)
+
+
+def test_flash_q8_frontend_on_card(cuda):
+    """``flash_attention_q8`` on strided views of a (L, B, S, Hkv, dh)
+    cache launches kernel 5 once and agrees with the CPU's plain version
+    on the same words."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1)
+    words, scales = quantize_blocked(
+        torch.randn((2, 3, 40, 2, 128), generator=gen, device=cuda))
+    q = torch.randn((3, 1, 32, 128), generator=gen, device=cuda)
+    args = (q, words[1, :, :25], words[0, :, :25], scales[1, :, :25, :, 0],
+            scales[0, :, :25, :, 0])
+    common.reset_counts()
+    got = flash_attention_q8(*args, causal=False)
+    spec = common.get_kernel("flash_attention_q8")
+    assert (spec.launches, spec.plain_calls) == (1, 0)
+    want = flash_attention_q8(*(a.cpu() for a in args), causal=False)
+    torch.testing.assert_close(got.cpu(), want, rtol=FLASH_TOL,
+                               atol=FLASH_TOL)
+
+
+def test_flash_q8_refuses_bad_inputs(cuda):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(2)
+    q, kw, vw, ks, vs = _q8_raw(gen, 4, 2, 8, 8, 16, torch.float32, cuda)
+    run = flash_kernel.flash_attention_q8_nhd_cuda
+    for bad in ((q, kw.float(), vw, ks, vs), (q, kw, vw, ks[:, :4], vs),
+                (q, kw, vw, ks.half(), vs), (q, kw, vw, ks, vs.t()),
+                (q.transpose(1, 2), kw, vw, ks, vs),
+                (q, kw, vw, ks.cpu(), vs)):
+        with pytest.raises(ValueError):
+            run(*bad, group=2)
+    with pytest.raises(ValueError, match="hq"):
+        run(q, kw, vw, ks, vs, group=3)
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("cache", ["int8", "fxp8"])
+def test_decode_attention_kv_cache_card_equals_cpu(cuda, cache, per_row):
+    """One decode attention over the int8 (per-vector scales) or fxp8
+    cache, the same inputs on the card and the CPU: the words and scales
+    written equal (the quantizers' float ops round alike), the context
+    within 1e-4 (float32 sums in another order)."""
+    from repro_torch.models import attention as A
+    gen = torch.Generator().manual_seed(3)
+    b, s_max, hkv, hq, dh = 3, 16, 2, 8, 16
+    q = torch.randn((b, 1, hq, dh), generator=gen)
+    k_new, v_new = (torch.randn((b, 1, hkv, dh), generator=gen)
+                    for _ in range(2))
+    words, scales = quantize_blocked(torch.randn((2, b, s_max, hkv, dh),
+                                                 generator=gen))
+    if cache == "fxp8":
+        words, scales = A.quantize_kv(4 * torch.randn(
+            (2, b, s_max, hkv, dh), generator=gen)), None
+    pos = (torch.tensor([3, 17, 9], dtype=torch.int32) if per_row
+           else torch.tensor(5, dtype=torch.int32))
+    cfg = get_arch("glm4-9b").reduced()
+    out = {}
+    for dev in ("cpu", cuda):
+        ck, cv = words[0].clone().to(dev), words[1].clone().to(dev)
+        sc = ([] if scales is None else
+              [scales[0].clone().to(dev), scales[1].clone().to(dev)])
+        ctx = A.decode_attention(q.to(dev), k_new.to(dev), v_new.to(dev),
+                                 ck, cv, pos.to(dev), cfg, cfg.exec_policy,
+                                 2 ** 30, *sc)
+        out[str(dev)] = [t.cpu() for t in (ctx, ck, cv, *sc)]
+    got, want = out[str(cuda)], out["cpu"]
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-4)
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("cache", ["int8", "fxp8"])
+def test_reduced_glm4_kv_cache_engine_on_card(cuda, cache):
+    """Reduced glm4-9b with the int8 or fxp8 K/V cache under
+    cordic_kernel on the card: the engine (6 requests through 4 slots)
+    equals single-stream decode, with no plain-version call."""
+    cfg = dataclasses.replace(
+        get_arch("glm4-9b").reduced().scaled(cache=CacheSpec(dtype=cache)),
+        exec_policy=ExecutionPolicy(matmul="cordic_kernel"))
+    model = build_model(cfg, cuda)
+    p = model.init(seed=0)
+    rng = np.random.default_rng(1)
+    reqs = [Request(i, rng.integers(0, 256, n).astype(np.int32),
+                    max_new_tokens=k)
+            for i, (n, k) in enumerate(zip((5, 11, 16, 3, 24, 8),
+                                           (4, 9, 2, 12, 1, 6)))]
+    common.reset_counts()
+    done = ServeEngine(model, p, ServeConfig(max_batch=4, max_seq=64)
+                       ).serve(reqs)
+    assert common.get_kernel("cordic_mac").plain_calls == 0
+    assert len(done) == len(reqs)
+    for r in done:
+        with torch.inference_mode():
+            lg, st = model.prefill(
+                p, {"tokens": torch.from_numpy(r.prompt)[None].to(cuda)},
+                headroom=64 - len(r.prompt))
+            assert st.cache_k.dtype == torch.int8
+            seq = [int(lg.reshape(-1).argmax())]
+            for _ in range(r.max_new_tokens - 1):
+                lg, st = model.decode_step(
+                    p, st, {"tokens": torch.tensor([[seq[-1]]], device=cuda)})
+                seq.append(int(lg.reshape(-1).argmax()))
+        assert r.output.tolist() == seq, r.rid
+
+
+@pytest.mark.parametrize("cache", ["int8", "fxp8"])
+def test_cordic_exec_reduced_model_kv_cache_on_card(cuda, cache):
+    """float32 reduced glm4-9b under CORDIC_EXEC with the int8 or fxp8 K/V
+    cache, card against CPU: prefill and 4 greedy decode steps give equal
+    logits and equal cache words and scales (K/V are W8A8 products, their
+    rotary embedding the reference's float ops, so both devices quantize
+    the same values)."""
+    cfg = dataclasses.replace(
+        get_arch("glm4-9b").reduced().scaled(dtype="float32",
+                                             cache=CacheSpec(dtype=cache)),
+        exec_policy=CORDIC_EXEC)
+    params = build_model(cfg, "cpu").init(seed=0)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, 256,
+                                                                (2, 9)))
+    nxt = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (4, 2, 1)))
+    out = {}
+    for dev in ("cpu", cuda):
+        model, p = build_model(cfg, dev), to_device(params, dev)
+        with torch.inference_mode():
+            lg, st = model.prefill(p, {"tokens": tokens.to(dev)}, headroom=4)
+            logits = [lg]
+            for step in nxt:
+                lg, st = model.decode_step(p, st, {"tokens": step.to(dev)})
+                logits.append(lg)
+        out[str(dev)] = [t.cpu() for t in (*logits, st.cache_k, st.cache_v)
+                         + ((st.scale_k, st.scale_v) if cache == "int8"
+                            else ())]
+    for got, want in zip(out[str(cuda)], out["cpu"]):
+        assert torch.equal(got, want)

@@ -1,4 +1,4 @@
-"""The port's flash-attention plain versions and frontend against the JAX
+"""The port's flash-attention plain versions and frontends against the JAX
 reference, on the CPU.
 
 The same numpy inputs go through ``repro``'s oracles
@@ -15,6 +15,13 @@ bottom-right (``tril(k=Sk-Sq)``): the two agree when Sq == Sk or when not
 causal, and each side is held to its own counterpart where they differ.
 The CUDA kernels are held to these plain versions on the card in
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+
+Kernel 5 (``flash_attention_q8``, int8 K/V with one float32 scale per
+cached vector, forward only) has no reference test to port: its plain
+version is held to ``repro``'s oracle ``attention_q8_nhd_ref`` within
+2e-6 (both dequantize in float32, then one float32 softmax each: the
+sums in another order), and to the interpret-mode Pallas kernel and
+``repro.kernels.flash_attention_q8`` within kernel 4's 2e-4.
 """
 import jax
 import jax.numpy as jnp
@@ -26,19 +33,27 @@ from repro.kernels.flash_attention import ops as jops
 from repro.kernels.flash_attention.kernel import flash_attention_nhd as j_fwd
 from repro.kernels.flash_attention.kernel_bwd import \
     flash_attention_bwd_nhd as j_bwd
+from repro.core.quant_cache import quantize_blocked as j_quantize_blocked
+from repro.kernels.flash_attention.kernel_q8 import \
+    flash_attention_q8_nhd as j_q8
 from repro.kernels.flash_attention.ref import attention_bwd_ref as j_bwd_ref
 from repro.kernels.flash_attention.ref import attention_nhd_ref as j_ref
+from repro.kernels.flash_attention.ref import \
+    attention_q8_nhd_ref as j_q8_ref
 from repro_torch import kernels as K
 from repro_torch.kernels import common
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_nhd_ref,
+                                                     attention_q8_nhd_ref,
                                                      flash_bwd_ref,
-                                                     flash_fwd_ref)
+                                                     flash_fwd_ref,
+                                                     flash_q8_ref)
 
 torch.set_num_threads(2)
 
 TOL = 2e-4
+Q8_ORACLE_TOL = 2e-6
 # (b, s, hq, hkv, d), causal: the reference's gradient test cases
 CASES = [((2, 64, 4, 4, 16), True), ((2, 64, 4, 4, 16), False),
          ((1, 64, 8, 2, 16), True), ((1, 64, 4, 1, 8), True),
@@ -202,3 +217,129 @@ def test_spec_registry():
         assert spec.source == ("src/repro_torch/kernels/flash_attention/"
                                f"csrc/{src}")
     assert ops.flash_attention is K.flash_attention
+
+
+# ---------------------------------------------------------------------------
+# Kernel 5: flash attention over an int8 K/V cache
+# ---------------------------------------------------------------------------
+
+# (hq, hkv, sq, sk, d), causal
+Q8_SQUARE = [((4, 4, 64, 64, 16), True), ((4, 4, 64, 64, 16), False),
+             ((8, 2, 64, 64, 16), True), ((16, 1, 32, 32, 8), True),
+             ((4, 2, 40, 40, 8), True), ((2, 2, 96, 96, 16), False)]
+# Sq != Sk: causal top-left (the kernel's mask), and the decode shape, one
+# query per head over a cache prefix, not causal
+Q8_RAGGED = [((4, 2, 16, 48, 16), True), ((2, 1, 8, 40, 16), False),
+             ((16, 1, 1, 64, 16), False), ((32, 2, 1, 24, 32), False)]
+
+
+def _q8_inputs(hq, hkv, sq, sk, d, seed=0, zero=()):
+    """q (Hq, Sq, d) float32; k, v (Hkv, Sk, d) int8 and their scales
+    (Hkv, Sk), quantized by ``repro``'s ``quantize_blocked``; the kv
+    positions in ``zero`` hold all-zero vectors (scale 0)."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(hq, sq, d)).astype(np.float32)
+    out = [q]
+    for _ in range(2):
+        x = rng.normal(0, 2.0, (hkv, sk, d)).astype(np.float32)
+        x[:, list(zero)] = 0.0
+        w, s = j_quantize_blocked(jnp.asarray(x))
+        out += [np.asarray(w), np.asarray(s)[..., 0]]
+    q, kw, ks, vw, vs = out
+    return q, kw, vw, ks, vs
+
+
+@pytest.mark.parametrize("shape,causal", Q8_SQUARE)
+def test_q8_plain_matches_reference_oracle(shape, causal):
+    """Plain kernel 5 and the port's oracle against ``repro``'s
+    ``attention_q8_nhd_ref`` (Sq == Sk), within 2e-6."""
+    x = _q8_inputs(*shape, seed=5)
+    group = shape[0] // shape[1]
+    want = np.asarray(j_q8_ref(*map(jnp.asarray, x), causal=causal,
+                               group=group))
+    got = flash_q8_ref(*_t(*x), causal=causal, group=group)
+    assert got.dtype == torch.float32
+    _close(got, want, tol=Q8_ORACLE_TOL)
+    _close(attention_q8_nhd_ref(*_t(*x), causal=causal, group=group), want,
+           tol=Q8_ORACLE_TOL)
+
+
+@pytest.mark.parametrize("shape,causal", Q8_SQUARE + Q8_RAGGED)
+def test_q8_plain_matches_interpret_kernel(shape, causal):
+    """Plain kernel 5 against the interpret-mode Pallas kernel, Sq != Sk
+    included (both mask top-left), within 2e-4."""
+    x = _q8_inputs(*shape, seed=6)
+    group = shape[0] // shape[1]
+    want = j_q8(*map(jnp.asarray, x), causal=causal, block_q=16,
+                block_k=16, group=group, interpret=True)
+    _close(flash_q8_ref(*_t(*x), causal=causal, group=group), want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_q8_frontend_matches_reference_frontend(dtype):
+    """``repro_torch.kernels.flash_attention_q8`` on the serving cache's
+    layout, from strided views of a (L, B, S, Hkv, dh) cache as a decode
+    state holds it, against ``repro.kernels.flash_attention_q8`` (interpret
+    mode): float32 within 2e-4; a bfloat16 q and output within 2e-4 plus
+    one bfloat16 step of the value."""
+    rng = np.random.default_rng(7)
+    b, sq, sk, hq, hkv, d = 2, 12, 12, 8, 2, 16
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    q = jnp.asarray(rng.normal(size=(b, sq, hq, d)).astype(np.float32), jdt)
+    cache = rng.normal(0, 2.0, (2, 3, b, sk + 4, hkv, d)).astype(np.float32)
+    words, scales = j_quantize_blocked(jnp.asarray(cache))
+    kw, vw = (np.asarray(words[i, 1, :, :sk]) for i in range(2))
+    ks, vs = (np.asarray(scales[i, 1, :, :sk, :, 0]) for i in range(2))
+    want = jops.flash_attention_q8(q, *map(jnp.asarray, (kw, vw, ks, vs)),
+                                   causal=True, interpret=True)
+    tw, ts = (torch.from_numpy(np.array(a)) for a in (words, scales))
+    tq = torch.from_numpy(np.array(q.astype(jnp.float32))).to(
+        getattr(torch, dtype))
+    common.reset_counts()
+    got = K.flash_attention_q8(tq, tw[0, 1, :, :sk], tw[1, 1, :, :sk],
+                               ts[0, 1, :, :sk, :, 0], ts[1, 1, :, :sk, :, 0],
+                               causal=True)
+    spec = common.get_kernel("flash_attention_q8")
+    assert (spec.launches, spec.plain_calls) == (0, 1)
+    assert got.shape == (b, sq, hq, d) and got.dtype == tq.dtype
+    rtol = TOL if dtype == "float32" else 2 ** -7
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=TOL,
+                               rtol=rtol)
+
+
+def test_q8_group_and_zero_vectors():
+    """GQA: q head h reads kv head h // group, as the float kernel with
+    the kv heads repeated.  All-zero cached vectors have scale 0 and read
+    back as exact zeros, so the output is the float plain version's on
+    the dequantized cache, and the Pallas kernel's within 2e-4."""
+    q, kw, vw, ks, vs = _q8_inputs(8, 2, 24, 24, 16, seed=8, zero=(0, 5, 23))
+    assert np.all(ks[:, [0, 5, 23]] == 0) and np.all(kw[:, [0, 5, 23]] == 0)
+    tq, tkw, tvw, tks, tvs = _t(q, kw, vw, ks, vs)
+    for causal in (True, False):
+        got = flash_q8_ref(tq, tkw, tvw, tks, tvs, causal=causal, group=4)
+        rep = [t.repeat_interleave(4, dim=0) for t in (tkw, tvw, tks, tvs)]
+        assert torch.equal(got, flash_q8_ref(tq, *rep, causal=causal))
+        kf, vf = (w.float() * s[..., None] for w, s in ((tkw, tks),
+                                                       (tvw, tvs)))
+        assert torch.all(kf[:, [0, 5, 23]] == 0)
+        assert torch.equal(got, flash_fwd_ref(tq, kf, vf, causal=causal,
+                                              group=4)[0])
+        _close(got, j_q8(*map(jnp.asarray, (q, kw, vw, ks, vs)),
+                         causal=causal, group=4, interpret=True))
+
+
+def test_q8_spec_registry_and_dispatch():
+    spec = common.get_kernel("flash_attention_q8")
+    assert spec.replaces == ("src/repro/kernels/flash_attention/"
+                             "kernel_q8.py:81")
+    assert spec.source == ("src/repro_torch/kernels/flash_attention/"
+                           "csrc/flash_q8.cu")
+    assert spec.plain is flash_q8_ref
+    assert ops.flash_attention_q8 is K.flash_attention_q8
+    x = _t(*_q8_inputs(4, 2, 8, 8, 8))
+    common.reset_counts()
+    ops.flash_attention_q8_nhd(*x, group=2)
+    assert (spec.launches, spec.plain_calls) == (0, 1)
+    with pytest.raises(ValueError, match="one CUDA device or all on the CPU"):
+        common.dispatch(spec, x[0], x[1].to("meta"))

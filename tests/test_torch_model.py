@@ -136,6 +136,24 @@ def test_prefill_and_decode_match_reference(matmul, dtype):
         nxt = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
 
 
+@pytest.mark.parametrize("head_dim,theta", [(16, 10000.0), (128, 10000.0),
+                                            (128, 1000000.0)])
+def test_rope_matches_reference_bit_for_bit(head_dim, theta):
+    """The rotary embedding in float32, positions 0-299 (both reductions
+    of sin/cos), as the reference's compiled model computes it: the
+    inverse frequencies folded in float64, ``sinf``/``cosf``, the
+    rotation's multiply-adds fused."""
+    pos = np.arange(300, dtype=np.int32)
+    x = np.random.default_rng(6).normal(size=(2, 300, 2, head_dim)).astype(
+        np.float32)
+    want = jax.jit(lambda p, v: JL.apply_rope(
+        v, JL.rope_angles(p, head_dim, theta)))(jnp.asarray(pos),
+                                                jnp.asarray(x))
+    got = L.apply_rope(torch.from_numpy(x), L.rope_sincos(
+        torch.from_numpy(pos), head_dim, theta))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 @pytest.mark.parametrize("impl", ["naive", "chunked"])
 def test_attention_impls_match_reference(impl):
     """The online-softmax chunked path (taken above 2048 keys) on a short
@@ -204,21 +222,28 @@ def test_materialize_is_seeded_and_scaled():
 
 
 def test_unported_modes_raise_naming_the_roadmap_item():
-    """The families and cache formats not ported yet are refused by name.
-    (The W8A8/W8A16 matmuls, the CORDIC AFs and the CORDIC softmax run
-    now, held to the reference in ``test_layers_under_cordic_policies_*``
-    and the ``cordic_exec`` model cases above; rwkv6 and its int8
-    recurrent state in ``test_torch_ssm.py``.)"""
+    """The families and cache formats not ported yet are refused by name:
+    the moe, hybrid and audio families, and paged caches (item 13).  The
+    int8 and fxp8 K/V caches of the dense family build, and read back
+    their format.  (The W8A8/W8A16 matmuls, the CORDIC AFs and the CORDIC
+    softmax run now, held to the reference in
+    ``test_layers_under_cordic_policies_*`` and the ``cordic_exec`` model
+    cases above; rwkv6 and its int8 recurrent state in
+    ``test_torch_ssm.py``; the int8 and fxp8 K/V caches in
+    ``test_torch_kv_cache.py``.)"""
     cfg = get_arch("glm4-9b").reduced()
     for arch in ("arctic-480b", "hymba-1.5b", "musicgen-medium"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(get_arch(arch).reduced(), "cpu")
-    for cache in (CacheSpec(dtype="int8"), CacheSpec(paged=True),
-                  CacheSpec(dtype="fxp8")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(cfg.scaled(cache=cache), "cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        build_model(cfg, "cpu").with_cache_dtype("int8")
+    with pytest.raises(NotImplementedError, match="item 13"):
+        build_model(cfg.scaled(cache=CacheSpec(paged=True)), "cpu")
+    for dtype in ("int8", "fxp8"):
+        spec = CacheSpec(dtype=dtype)
+        assert build_model(cfg.scaled(cache=spec),
+                           "cpu").cfg.cache_spec() == spec
+    q = build_model(cfg, "cpu").with_cache_dtype("int8")
+    assert q.cfg.cache_spec() == CacheSpec(dtype="int8")
+    assert q.init_slot_state(2, 8).cache_k.dtype == torch.int8
     ssm = get_arch("rwkv6-3b").reduced()
     assert build_model(ssm.scaled(cache=CacheSpec(dtype="int8")),
                        "cpu").cfg.cache_spec().quantized
