@@ -94,7 +94,8 @@ Phases, in order; any failure exits non-zero and prints no result:
                64 and 128, float32 and bf16, and that layout; atol = rtol =
                2e-4), the ops-level gradient against the exact attention VJP;
                kernel, plain version, bound and scaled_dot_product_attention
-               timed at that layout.
+               timed at that layout, and kernel 6's passes (dQ, dK/dV, the
+               sum of the dK/dV parts) by device time from torch.profiler.
 14. rwkv6 train — full-width rwkv6-3b trained under ``CORDIC_EXEC`` by the
                port's ``Trainer`` (as ``launch/train.py --cordic --batch 2
                --seq 256 --steps 3`` builds it: SyntheticStream, AdamW with
@@ -136,7 +137,9 @@ Phases, in order; any failure exits non-zero and prints no result:
                a decode of 4 rows over 4096 cached positions, float32 and
                bf16 q) checked, and timed with its bound, the plain version
                and scaled_dot_product_attention on K/V dequantized
-               beforehand.
+               beforehand; kernel 5's plan (block shape, key chunks, grid)
+               logged at every shape, and its device time by CUDA kernel
+               (the main kernel, the combine of the key chunks).
 
 Each phase prints its seconds.  The last three lines are nvidia-smi's
 name and power limit, one JSON object with a record per kernel, and
@@ -149,6 +152,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -833,8 +837,8 @@ def record_activations(store: dict, vocab: int):
         keep("scores", x)
         return softmax(x, policy, axis)
 
-    def rec_dense(x, w, policy, bias=None):
-        out = dense(x, w, policy, bias)
+    def rec_dense(x, w, policy, bias=None, **kw):
+        out = dense(x, w, policy, bias, **kw)
         if w.shape[-1] == vocab:
             keep("logits", out)
         return out
@@ -1493,6 +1497,45 @@ def phase_wkv_path(dev, rec: dict, errs: dict) -> dict:
 # Training: the flash kernels, full-width rwkv6-3b, the wkv backward
 # ---------------------------------------------------------------------------
 
+def fresh_process_passes() -> dict:
+    """Kernel 6's passes at glm4-9b's bf16 training layout, measured by
+    ``repro_torch.launch.flash_probe passes`` in a process of its own
+    (the same seeded inputs and :func:`device_per_launch`'s method)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-m",
+                          "repro_torch.launch.flash_probe", "passes"],
+                         capture_output=True, text=True, env=env,
+                         timeout=300)
+    if out.returncode != 0:
+        raise RuntimeError(f"flash_probe passes failed:\n{out.stderr}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def device_per_launch(fn, reps: int, names: tuple) -> dict:
+    """Mean device ms per launch of each CUDA kernel whose name contains
+    one of ``names``, over ``reps`` calls of ``fn``, read from the trace's
+    raw device events as :func:`train_profile` reads them (the profiler's
+    per-op summary can leave out kernels launched outside torch, as these
+    are).  A name with no device event in the trace is left out."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    sums = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        for name in names:
+            if name in e.name():
+                t, n = sums.get(name, (0, 0))
+                sums[name] = (t + e.duration_ns(), n + 1)
+    return {name: t / n / 1e6 for name, (t, n) in sums.items()}
+
+
 # The flash kernels against their plain versions: float32 within atol =
 # rtol = 2e-4, the reference's own band for its flash gradient tests
 # (tests/test_kernel_grads.py).  A bfloat16 output may also round the
@@ -1509,6 +1552,11 @@ FLASH_CASES = ((2, 64, 4, 4, 16, True), (2, 64, 4, 4, 16, False),
 # glm4-9b's attention at train_4k's length: B = 1, S = 4096, 32 q heads,
 # 2 kv heads of 128, bfloat16, causal.
 GLM4_TRAIN_ATTN = (1, 4096, 32, 2, 128)
+# kernel 6's CUDA kernels (flash_bwd.cu): the bf16 planes of float inputs,
+# the dQ pass, the dK/dV pass and the sum of its parts; kernel 5's
+# (flash_q8.cu): the main kernel and the combine of the key chunks
+BWD_PASSES = ("planes_kernel", "dq_kernel", "dkv_kernel", "sum_parts_kernel")
+Q8_KERNELS = ("q8_kernel", "q8_decode_kernel", "q8_combine_kernel")
 BF16_TC_OPS_PER_S = 989e12    # dense bf16 tensor-core peak
 # Full-width rwkv6-3b training: batch 2 x 256 tokens (train_4k's 4096
 # cut: the model runs its recurrence one token at a time), AdamW with
@@ -1702,6 +1750,18 @@ def phase_flash(dev) -> dict:
              "sdpa_fwd": time_ms(sdpa_fwd, [()], reps=10),
              "sdpa_fwd_bwd": time_ms(sdpa_fwd_bwd, [()], reps=10)}
     sdpa_bwd = times["sdpa_fwd_bwd"] - times["sdpa_fwd"]
+    passes = device_per_launch(bwd_kernel, 3, BWD_PASSES)
+    source = "this process"
+    if not passes:
+        # the trace of this long process held none of them: a fresh one
+        passes, source = fresh_process_passes(), "a fresh process"
+    plan = flash_kernel.bwd_plan(hq, hkv, s, d, True, True,
+                                 flash_kernel._sms(dev.index))
+    log(f"  flash_attention_bwd passes at {GLM4_TRAIN_ATTN} bf16 causal "
+        f"(torch.profiler device ms a launch, {source}; the dK/dV pass's "
+        f"group cut into {plan['nsplit']} parts): "
+        + (", ".join(f"{k} {v:.4f}" for k, v in passes.items())
+           or "not measured"))
     records = {}
     for name, key, backward, lib in (
             ("flash_attention", "fwd", False, times["sdpa_fwd"]),
@@ -1720,6 +1780,8 @@ def phase_flash(dev) -> dict:
             "plain_ms": times["plain_" + key], "bound_ms": bnd,
             "bound_by": by, "library_ms": lib,
             "max_abs_err": max(errs["bwd" if backward else "fwd"]),
+            **({"device_ms_by_pass": passes, "nsplit": plan["nsplit"]}
+               if backward else {}),
             "work": f"glm4-9b's causal attention at train_4k's length, "
                     f"(B, S, Hq, Hkv, d) = {GLM4_TRAIN_ATTN} bf16; library: "
                     f"scaled_dot_product_attention"
@@ -2407,6 +2469,15 @@ def q8_check(q, k, v, ks, vs, causal: bool, what: str, errs: list):
           rtol=rtol)
 
 
+def q8_plan_of(q, k, sms: int) -> dict:
+    """Kernel 5's plan for (B, Sq, Hq, d) q over (B, Sk, Hkv, d) words:
+    the decode or the prefill kernel, key chunks and the grid the wrapper
+    launches."""
+    b, sq, hq, _ = q.shape
+    hkv = k.shape[2]
+    return flash_kernel.q8_plan(b * hkv, sq, k.shape[1], hq // hkv, sms)
+
+
 def long_q8_inputs(gen, rows: int, sq: int, dtype, dev):
     """q (rows, sq, 32, 128) in ``dtype`` and an int8 K/V cache of 4096
     positions per row (words and squeezed scales) from seeded normals
@@ -2447,10 +2518,12 @@ def phase_q8_path(dev, rec: dict) -> dict:
                              f"flash_attention_q8 and nothing else, got "
                              f"{used}")
     errs: list = []
+    sms = flash_kernel._sms(dev.index)
     for (what, q, k, v, ks, vs, c), out in zip(calls, outs):
         if out.shape != q.shape or not torch.isfinite(out.float()).all():
             raise AssertionError(f"q8 path {what}: shape or values")
         q8_check(q, k, v, ks, vs, c, what, errs)
+        log(f"  {what}: kernel 5's plan {q8_plan_of(q, k, sms)}")
     log(f"[q8 path] every call within atol {FLASH_TOL}, rtol one bf16 step "
         f"{FLASH_BF16_RTOL} of its plain version; largest |diff| "
         f"{max(errs):.3e}")
@@ -2491,8 +2564,17 @@ def phase_q8_path(dev, rec: dict) -> dict:
         lib_ms = time_ms(sdpa, [()], reps=10)
         t_b, t_o = q8_bound(q, k, [s] * rows, causal)
         bnd, by = larger(t_b, t_o)
+        plan = q8_plan_of(q, k, sms)
+        dev_ms = device_per_launch(
+            lambda: flash_kernel.flash_attention_q8_nhd_cuda(
+                *raw, causal=causal, group=group), 10, Q8_KERNELS)
         timed[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
-                       "bound_by": by, "library_ms": lib_ms}
+                       "bound_by": by, "library_ms": lib_ms,
+                       "device_ms_by_kernel": dev_ms, "plan": plan}
+        log(f"  flash_attention_q8 {name}: plan {plan}; device ms a launch "
+            f"(torch.profiler) "
+            + (", ".join(f"{k_} {v_:.4f}" for k_, v_ in dev_ms.items())
+               or "not measured"))
         log(f"  flash_attention_q8 {name}: B {rows}, Sq {sq}, Sk {s}, "
             f"(Hq, Hkv, d) = {GLM4_LONG[1:]}, bf16 q, causal={causal}: "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd:.5f} "

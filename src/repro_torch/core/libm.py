@@ -191,20 +191,21 @@ def log(x: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _ln2_in(dtype: torch.dtype) -> float:
+def ln2_in(dtype: torch.dtype) -> float:
+    """``ln2`` rounded to ``dtype``: the factor of :func:`exp2`."""
     return torch.tensor(math.log(2.0), dtype=dtype).item()
 
 
 @functools.lru_cache(maxsize=None)
 def _inv_ln2_in(dtype: torch.dtype) -> float:
     """float32 reciprocal of ``ln2`` rounded to ``dtype``."""
-    return (torch.tensor(1.0) / torch.tensor(_ln2_in(dtype))).item()
+    return (torch.tensor(1.0) / torch.tensor(ln2_in(dtype))).item()
 
 
 def exp2(x: torch.Tensor) -> torch.Tensor:
     """``2**x`` as ``exp(x * ln2)``, in ``x``'s dtype."""
     dt = x.dtype
-    return exp((x.to(_F32) * _ln2_in(dt)).to(dt))
+    return exp((x.to(_F32) * ln2_in(dt)).to(dt))
 
 
 def log2(x: torch.Tensor) -> torch.Tensor:

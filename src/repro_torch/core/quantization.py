@@ -13,7 +13,13 @@ Scales stay in the activations' dtype, as the reference's do: under
 bfloat16, ``amax / 127``, ``log2``, ``ceil``, ``exp2`` and ``x / scale``
 each round to bfloat16, and ``exp2`` of an integer is not always a power
 of two there (it is 127 at 7); only the returned scale is float32.
-``log2`` and ``exp2`` come from :mod:`repro_torch.core.libm`.
+``log2`` and ``exp2`` come from :mod:`repro_torch.core.libm`.  The
+reference's compiled decoder block (its ``jax.lax.scan`` body) keeps one
+rounding fewer: its compiler drops the round trip of the activation
+scale through bfloat16 that ``scale.astype(float32)`` makes, so the int32
+products are rescaled by ``exp2``'s float32 value while ``x`` is divided
+by the rounded scale.  ``wide_scale=True`` reproduces that (in float32
+the two are the same).
 
 The activation scale spans every row of ``x``: a request's tokens depend
 on its batch-mates, pads and idle serving slots included, as in the
@@ -53,9 +59,14 @@ class QuantPolicy:
         return (1 << (self.act_bits - 1)) - 1
 
 
-def _round_scale_pow2(scale: torch.Tensor) -> torch.Tensor:
-    return libm.exp2(torch.ceil(libm.log2(
-        torch.maximum(scale, libm.const(1e-12, scale)))))
+def _pow2_scale(scale: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``exp2(ceil(log2(max(scale, 1e-12))))`` in ``scale``'s dtype, and
+    the float32 value of its ``exp`` before that rounding."""
+    dt = scale.dtype
+    c = torch.ceil(libm.log2(torch.maximum(scale, libm.const(1e-12, scale))))
+    wide = libm.exp((c.to(torch.float32) * libm.ln2_in(dt)).to(dt)
+                    .to(torch.float32))
+    return wide.to(dt), wide
 
 
 def quantize_weight(w: torch.Tensor, policy: QuantPolicy, axis: int = -1
@@ -75,7 +86,7 @@ def quantize_weight(w: torch.Tensor, policy: QuantPolicy, axis: int = -1
         amax = torch.amax(torch.abs(w))
     scale = amax / libm.const(policy.qmax, amax)
     if policy.pow2_scale:
-        scale = _round_scale_pow2(scale)
+        scale = _pow2_scale(scale)[0]
     scale = torch.maximum(scale, libm.const(1e-12, scale))
     q = torch.clamp(torch.round(w / scale), -policy.qmax, policy.qmax)
     out = torch.empty(q.movedim(keep, 0).shape, dtype=torch.int8,
@@ -83,17 +94,23 @@ def quantize_weight(w: torch.Tensor, policy: QuantPolicy, axis: int = -1
     return out.copy_(q), scale.to(torch.float32)
 
 
-def quantize_act(x: torch.Tensor, policy: QuantPolicy
+def quantize_act(x: torch.Tensor, policy: QuantPolicy, *,
+                 wide_scale: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dynamic per-tensor symmetric activation quantization."""
+    """Dynamic per-tensor symmetric activation quantization.  With
+    ``wide_scale`` the returned pow-2 scale is the float32 value before
+    its rounding to ``x``'s dtype, as the reference's compiled block
+    rescales by it (module docstring)."""
     amax = torch.amax(torch.abs(x))
     scale = torch.maximum(amax / libm.const(policy.act_qmax, amax),
                           libm.const(1e-12, amax))
+    wide = None
     if policy.pow2_scale:
-        scale = _round_scale_pow2(scale)
+        scale, wide = _pow2_scale(scale)
     q = torch.clamp(torch.round(x / scale), -policy.act_qmax,
                     policy.act_qmax)
-    return q.to(torch.int8), scale.to(torch.float32)
+    return q.to(torch.int8), (wide if wide_scale and wide is not None
+                              else scale.to(torch.float32))
 
 
 def _fake_quant_fwd(x: torch.Tensor, policy: QuantPolicy) -> torch.Tensor:
@@ -144,23 +161,27 @@ def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
 
 
 def _quantized_forward(x: torch.Tensor, w: torch.Tensor,
-                       policy: QuantPolicy) -> torch.Tensor:
+                       policy: QuantPolicy, wide_scale: bool = False
+                       ) -> torch.Tensor:
     w_q, w_s = quantize_weight(w, policy, axis=-1)
     if policy.act_bits is None:
         return x @ (w_q.to(x.dtype) * w_s.to(x.dtype))
-    x_q, x_s = quantize_act(x, policy)
+    x_q, x_s = quantize_act(x, policy, wide_scale=wide_scale)
     return int8_matmul(x_q, w_q, x_s, w_s).to(x.dtype)
 
 
 def quantized_dense(x: torch.Tensor, w: torch.Tensor,
-                    policy: Optional[QuantPolicy]) -> torch.Tensor:
+                    policy: Optional[QuantPolicy], *,
+                    wide_scale: bool = False) -> torch.Tensor:
     """Dense layer on the CORDIC-FxP8 execution path, STE backward.
 
     policy None   -> plain matmul (baseline);
     act_bits None -> weight-only quantization (W8A16);
-    else          -> W8A8 int8 matmul.
+    else          -> W8A8 int8 matmul, rescaled by the activation scale
+                     :func:`quantize_act` gives with ``wide_scale``.
     """
     if policy is None:
         return x @ w
-    return ste(functools.partial(_quantized_forward, policy=policy),
+    return ste(functools.partial(_quantized_forward, policy=policy,
+                                 wide_scale=wide_scale),
                torch.matmul)(x, w)

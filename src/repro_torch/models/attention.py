@@ -9,6 +9,7 @@ study).  Paged caches come with ROADMAP queue 1, item 13.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -64,15 +65,34 @@ class AttnParams(NamedTuple):
 def qkv(x: torch.Tensor, p: AttnParams, cfg: ArchConfig, pol: ExecutionPolicy,
         rope: Tuple[torch.Tensor, torch.Tensor]
         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The projections, heads split; q and k rotated by ``rope``, the
-    (sin, cos) of :func:`layers.rope_sincos` at the tokens' positions."""
-    q = _split_heads(L.dense(x, p.wq, pol, p.bq), cfg.n_heads)
-    k = _split_heads(L.dense(x, p.wk, pol, p.bk), cfg.n_kv_heads)
-    v = _split_heads(L.dense(x, p.wv, pol, p.bv), cfg.n_kv_heads)
+    """The projections of a decoder block (``wide_scale``), heads split; q
+    and k rotated by ``rope``, the (sin, cos) of
+    :func:`layers.rope_sincos` at the tokens' positions."""
+    q, k, v = (L.dense(x, w, pol, b, wide_scale=True)
+               for w, b in ((p.wq, p.bq), (p.wk, p.bk), (p.wv, p.bv)))
+    q = _split_heads(q, cfg.n_heads)
+    k = _split_heads(k, cfg.n_kv_heads)
+    v = _split_heads(v, cfg.n_kv_heads)
     if cfg.family != "ssm":
         q = L.apply_rope(q, rope)
         k = L.apply_rope(k, rope)
     return q, k, v
+
+
+@functools.lru_cache(maxsize=None)
+def _inv_root(dh: int, dtype: torch.dtype) -> float:
+    """The float32 reciprocal of ``sqrt(dh)`` rounded to ``dtype``."""
+    root = torch.tensor(math.sqrt(dh), dtype=dtype).to(torch.float32)
+    return (1.0 / root).item()
+
+
+def _scaled(scores: torch.Tensor, dh: int) -> torch.Tensor:
+    """float32 ``scores / sqrt(dh)`` as the reference's compiled block
+    takes it: the product in the inputs' dtype times the float32
+    reciprocal of ``sqrt(dh)`` rounded to that dtype, not rounded again
+    (its compiler folds the division into that product and drops the
+    rounding to bfloat16 before the float32 mask)."""
+    return scores.to(torch.float32) * _inv_root(dh, scores.dtype)
 
 
 def naive_attention(q, k, v, cfg: ArchConfig, pol: ExecutionPolicy, q_pos,
@@ -81,10 +101,9 @@ def naive_attention(q, k, v, cfg: ArchConfig, pol: ExecutionPolicy, q_pos,
     b, sq, hq, dh = q.shape
     hkv = k.shape[2]
     qg = q.reshape(b, sq, hkv, hq // hkv, dh)
-    scores = torch.einsum("bskgd,btkd->bkgst", qg, k) / math.sqrt(dh)
+    scores = _scaled(torch.einsum("bskgd,btkd->bkgst", qg, k), dh)
     mask = _causal_window_mask(q_pos, k_pos, window)
-    scores = torch.where(mask[None, None, None], scores.to(torch.float32),
-                         NEG_INF)
+    scores = torch.where(mask[None, None, None], scores, NEG_INF)
     probs = L.softmax(scores, pol).to(q.dtype)
     ctx = torch.einsum("bkgst,btkd->bskgd", probs, v)
     return ctx.reshape(b, sq, hq, dh)
@@ -152,7 +171,7 @@ def _attend_decode(q, keys, vals, pos: torch.Tensor, pol: ExecutionPolicy,
     s_max = keys.shape[1]
     hkv = keys.shape[2]
     qg = q.reshape(b, 1, hkv, hq // hkv, dh)
-    scores = torch.einsum("bskgd,btkd->bkgst", qg, keys) / math.sqrt(dh)
+    scores = _scaled(torch.einsum("bskgd,btkd->bkgst", qg, keys), dh)
     per_row = pos.dim() == 1
     t = torch.arange(s_max, device=q.device)
     p = pos[:, None] if per_row else pos
@@ -160,7 +179,7 @@ def _attend_decode(q, keys, vals, pos: torch.Tensor, pol: ExecutionPolicy,
     valid = age < torch.clamp(p + 1, max=s_max)
     mask = valid & (age < window)
     mask = mask[:, None, None, None, :] if per_row else mask[None, None, None, None, :]
-    scores = torch.where(mask, scores.to(torch.float32), NEG_INF)
+    scores = torch.where(mask, scores, NEG_INF)
     probs = L.softmax(scores, pol).to(q.dtype)
     ctx = torch.einsum("bkgst,btkd->bskgd", probs, vals)
     return ctx.reshape(b, 1, hq, dh)

@@ -15,8 +15,13 @@ from repro_torch.kernels.cordic_mac.ops import cordic_matmul
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, policy: ExecutionPolicy,
-          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Matmul through the policy-selected datapath."""
+          bias: Optional[torch.Tensor] = None, *,
+          wide_scale: bool = False) -> torch.Tensor:
+    """Matmul through the policy-selected datapath.  ``wide_scale``: the
+    W8A8 product is rescaled as the reference's compiled decoder block
+    rescales it (:mod:`repro_torch.core.quantization`); the projections
+    of a block pass it, the head after the blocks does not (the reference
+    runs it op by op)."""
     if policy.matmul == "bf16":
         out = x @ w.to(x.dtype)
     elif policy.matmul == "cordic_kernel":
@@ -24,7 +29,7 @@ def dense(x: torch.Tensor, w: torch.Tensor, policy: ExecutionPolicy,
         out = cordic_matmul(x2, w.to(torch.float32))
         out = out.reshape(*x.shape[:-1], w.shape[-1]).to(x.dtype)
     elif policy.matmul == "fxp8":
-        out = quantized_dense(x, w, policy.quant)
+        out = quantized_dense(x, w, policy.quant, wide_scale=wide_scale)
     elif policy.matmul == "fxp8_weight":
         out = quantized_dense(x, w, QuantPolicy(act_bits=None))
     else:
@@ -116,9 +121,10 @@ def apply_rope(x: torch.Tensor, sincos: Tuple[torch.Tensor, torch.Tensor]
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor, policy: ExecutionPolicy,
            act: str = "silu") -> torch.Tensor:
-    g = dense(x, w_gate, policy)
-    u = dense(x, w_up, policy)
-    return dense(af(g, act, policy) * u, w_down, policy)
+    """The gated FFN of a decoder block (its projections ``wide_scale``)."""
+    g = dense(x, w_gate, policy, wide_scale=True)
+    u = dense(x, w_up, policy, wide_scale=True)
+    return dense(af(g, act, policy) * u, w_down, policy, wide_scale=True)
 
 
 def embedding_lookup(tokens: torch.Tensor, table: torch.Tensor

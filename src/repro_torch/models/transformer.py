@@ -176,7 +176,8 @@ def block_forward(x: Tensor, bp: Dict[str, Any], cfg: ArchConfig,
     h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
     q, k, v = A.qkv(h, _attn_params(bp), cfg, pol, rope)
     ctx = A.attention(q, k, v, cfg, pol, positions, positions, window)
-    attn_out = L.dense(ctx.reshape(*x.shape[:2], -1), bp["attn"]["wo"], pol)
+    attn_out = L.dense(ctx.reshape(*x.shape[:2], -1), bp["attn"]["wo"], pol,
+                       wide_scale=True)
     return _ffn(x, attn_out, bp, cfg, pol), k, v
 
 
@@ -390,8 +391,9 @@ def decode_step(params: Dict[str, Any], state: DecodeState,
             ctx = A.decode_attention(
                 q, k, v, state.cache_k[i], state.cache_v[i], pos, cfg, pol,
                 int(windows[i]), *_layer_scales(state, i))
-            x = _ffn(x, L.dense(ctx.reshape(b, 1, -1), bp["attn"]["wo"], pol),
-                     bp, cfg, pol)
+            attn_out = L.dense(ctx.reshape(b, 1, -1), bp["attn"]["wo"], pol,
+                               wide_scale=True)
+            x = _ffn(x, attn_out, bp, cfg, pol)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = L.dense(x, params["lm_head"], pol)
     return logits, state._replace(pos=pos + 1)

@@ -417,11 +417,13 @@ def _flash_close(got, want, dtype):
     (8, 2, 64, 64, 16, True), (4, 1, 64, 64, 8, True),
     (8, 4, 40, 40, 8, True), (2, 2, 96, 96, 16, False),
     (4, 2, 96, 96, 64, True), (4, 2, 40, 40, 128, False),
-    (2, 1, 33, 70, 256, False), (2, 2, 130, 130, 100, True)])
+    (2, 1, 33, 70, 256, False), (2, 2, 130, 130, 100, True),
+    (32, 2, 128, 128, 64, True)])
 def test_flash_kernels_match_plain_on_card(cuda, hq, hkv, sq, sk, d, causal,
                                            dtype):
     """Kernels 4 and 6 against their plain versions on the same inputs:
-    out, lse, dq, dk, dv."""
+    out, lse, dq, dk, dv.  The last case is a GQA group of 16 (glm4-9b's),
+    whose dK/dV pass sums partial sums over parts of the group."""
     gen = torch.Generator(device=cuda)
     gen.manual_seed(hq * sq + d)
     q = torch.randn((hq, sq, d), generator=gen, device=cuda).to(dtype)
@@ -624,11 +626,15 @@ def _q8_raw(gen, hq, hkv, sq, sk, d, dtype, dev):
     (16, 1, 33, 70, 8, True), (32, 2, 16, 16, 128, True),
     (32, 2, 1, 64, 128, False), (32, 2, 1, 4096, 128, False),
     (32, 2, 130, 130, 128, True), (2, 1, 40, 17, 256, True),
-    (6, 3, 50, 50, 100, False)])
+    (6, 3, 50, 50, 100, False), (128, 8, 1, 4096, 128, False),
+    (32, 2, 1, 1000, 128, False), (32, 2, 1, 300, 128, True)])
 def test_flash_q8_kernel_matches_plain_on_card(cuda, hq, hkv, sq, sk, d,
                                                causal, dtype):
     """Kernel 5 against its plain version on the same inputs: glm4-9b's
-    prefill and decode shapes (32 q / 2 kv heads of 128) among them."""
+    prefill and decode shapes (32 q / 2 kv heads of 128) among them.  The
+    decode shapes cut the keys into several chunks combined by a second
+    kernel: 4 slots over 4096 positions, 1000 keys (the last chunk
+    ragged), and Sq = 1 causal (key 0 alone is live)."""
     gen = torch.Generator(device=cuda)
     gen.manual_seed(hq * sq + d)
     x = _q8_raw(gen, hq, hkv, sq, sk, d, dtype, cuda)

@@ -42,6 +42,7 @@ from repro.kernels.flash_attention.ref import \
     attention_q8_nhd_ref as j_q8_ref
 from repro_torch import kernels as K
 from repro_torch.kernels import common
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_nhd_ref,
@@ -343,3 +344,153 @@ def test_q8_spec_registry_and_dispatch():
     assert (spec.launches, spec.plain_calls) == (0, 1)
     with pytest.raises(ValueError, match="one CUDA device or all on the CPU"):
         common.dispatch(spec, x[0], x[1].to("meta"))
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core kernels' rounding, emulated on the CPU.  Kernels 5 and 6
+# multiply bf16 operands on the tensor cores with float32 sums: a float32
+# operand (P, dS, p s_v, and float32 or fp16 inputs) is split into hi =
+# bf16(x) and lo = bf16(x - hi), and a product of two split operands is
+# hi·hi + hi·lo + lo·hi.  These tests hold that rounding, and kernel 5's
+# split-key (m, l, acc) combine, to the plain versions within the kernels'
+# bars before the card runs them.
+# ---------------------------------------------------------------------------
+
+_F32 = torch.float32
+
+
+def _bf(x):
+    return x.to(torch.bfloat16).to(_F32)
+
+
+def _planes(x, split):
+    """The kernels' bf16 operand planes of ``x``: (hi, lo) when split, else
+    x itself (a bf16 input, exact)."""
+    x = x.to(_F32)
+    hi = _bf(x)
+    return (hi, _bf(x - hi)) if split else (hi,)
+
+
+def _mma(eq, a, b):
+    """sum over plane pairs (i, j), i + j <= 1, of einsum(eq, a_i, b_j)."""
+    return sum(torch.einsum(eq, a[i], b[j]) for i in range(len(a))
+               for j in range(len(b)) if i + j <= 1)
+
+
+def _emulated_bwd(q, k, v, do, lse, delta, *, causal, group):
+    """Kernel 6's arithmetic: dq, dk, dv (dk/dv summed over the group)."""
+    hkv, sk, d = k.shape
+    sq = q.shape[1]
+    scale = 1.0 / d ** 0.5
+    split = any(t.dtype != torch.bfloat16 for t in (q, k, v, do))
+    rep = (lambda t: t.repeat_interleave(group, dim=0))
+    qp, op_ = _planes(q, split), _planes(do, split)
+    kp = tuple(map(rep, _planes(k, split)))
+    vp = tuple(map(rep, _planes(v, split)))
+    s = _mma("hqd,hkd->hqk", qp, kp) * scale
+    if causal:
+        live = torch.arange(sq)[:, None] >= torch.arange(sk)[None, :]
+        s = torch.where(live, s, torch.full((), -1e30))
+    p = torch.exp(s - lse[..., None])
+    ds = p * (_mma("hqd,hkd->hqk", op_, vp) - delta[..., None]) * scale
+    pp, dsp = _planes(p, True), _planes(ds, True)
+    dq = _mma("hqk,hkd->hqd", dsp, kp)
+    dk = _mma("hqk,hqd->hkd", dsp, qp).reshape(hkv, group, sk, d).sum(1)
+    dv = _mma("hqk,hqd->hkd", pp, op_).reshape(hkv, group, sk, d).sum(1)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,causal", CASES + [((1, 48, 32, 2, 16), True)])
+def test_emulated_tensor_core_backward_within_bar(shape, causal, dtype):
+    """Kernel 6's hi/lo rounding (P and dS always, Q, K, V and dO when
+    float32) against its plain version, within its bar, atol = rtol =
+    2e-4; the last shape is a GQA group of 16, as glm4-9b's."""
+    q, k, v, g = (torch.from_numpy(_hsd(a)).to(dtype)
+                  for a in _inputs(*shape, seed=7))
+    group = shape[2] // shape[3]
+    out, lse = flash_fwd_ref(q, k, v, causal=causal, group=group)
+    delta = (g.float() * out.float()).sum(-1)
+    want = flash_bwd_ref(q, k, v, g, lse, delta, causal=causal, group=group)
+    got = _emulated_bwd(q, k, v, g, lse, delta, causal=causal, group=group)
+    for a, b_ in zip(got, want):
+        _close(a, b_)
+    # one bf16 rounding of P and dS instead of the split misses the bar
+    p_only = _planes(torch.tensor([1 / 3]), True)
+    assert abs(float(p_only[0]) - 1 / 3) > TOL * (1 / 3)
+    assert abs(float(p_only[0] + p_only[1]) - 1 / 3) < 2 ** -16 / 3
+
+
+def _emulated_q8(q, kw, vw, ks, vs, *, causal, group, chunk):
+    """Kernel 5's arithmetic: Q Wₖᵀ on exact words, the K scale after the
+    dot, (p s_v) split hi/lo times W_v, each key chunk's (m, l, acc)
+    combined in order of chunk."""
+    hkv, sk, d = kw.shape
+    sq = q.shape[1]
+    rep = (lambda t: t.repeat_interleave(group, dim=0))
+    qp = _planes(q, q.dtype != torch.bfloat16)
+    wk, wv = rep(kw.to(_F32)), rep(vw.to(_F32))
+    s = (_mma("hqd,hkd->hqk", qp, (wk,)) * rep(ks)[:, None, :]
+         * (1.0 / d ** 0.5))
+    live = torch.ones((sq, sk), dtype=torch.bool)
+    if causal:
+        live = torch.arange(sq)[:, None] >= torch.arange(sk)[None, :]
+    parts = []
+    for c0 in range(0, max(sk, 1), chunk):
+        sl = slice(c0, min(c0 + chunk, sk))
+        sc = torch.where(live[:, sl], s[..., sl], torch.full((), -1e30))
+        m = torch.where(live[:, sl], sc, torch.full((), -3e38)).amax(-1)
+        m = torch.maximum(m, torch.full((), -1e30))
+        p = torch.where(live[:, sl], torch.exp(sc - m[..., None]),
+                        torch.zeros(()))
+        pv = _planes(p * rep(vs)[:, None, sl], True)
+        parts.append((m, p.sum(-1), _mma("hqk,hkd->hqd", pv, (wv[:, sl],))))
+    big = torch.stack([m for m, _, _ in parts]).amax(0)
+    w = [torch.exp(m - big) for m, _, _ in parts]
+    den = torch.clamp(sum(l * e for (_, l, _), e in zip(parts, w)), min=1e-30)
+    out = sum(a * e[..., None] for (_, _, a), e in zip(parts, w))
+    return (out / den[..., None]).to(q.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,causal", Q8_SQUARE + Q8_RAGGED + [
+    ((32, 2, 1, 300, 16), False), ((32, 2, 1, 300, 16), True),
+    ((16, 1, 3, 200, 32), False)])
+def test_emulated_q8_split_keys_within_bar(shape, causal, dtype):
+    """Kernel 5's rounding and its split-key combine, with the chunks the
+    wrapper plans on a 132-SM card, against the plain version within its
+    bars (float32 atol = rtol = 2e-4; a bf16 output atol 2e-4, rtol one
+    bf16 step).  The decode shapes give several key chunks, the last one
+    ragged (300 keys in chunks of 64)."""
+    q, kw, vw, ks, vs = _t(*_q8_inputs(*shape, seed=8, zero=(0, 3)))
+    q = q.to(dtype)
+    hq, hkv, sq, sk, _ = shape
+    plan = flash_kernel.q8_plan(hkv, sq, sk, hq // hkv, 132)
+    assert plan["chunk"] % flash_kernel.Q8_KEY_TILE == 0
+    assert plan["nsplit"] == -(-sk // plan["chunk"])
+    got = _emulated_q8(q, kw, vw, ks, vs, causal=causal, group=hq // hkv,
+                       chunk=plan["chunk"])
+    want = flash_q8_ref(q, kw, vw, ks, vs, causal=causal, group=hq // hkv)
+    rtol = TOL if dtype == torch.float32 else 2 ** -7
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               atol=TOL, rtol=rtol)
+    if sq == 1 and sk == 300:
+        assert plan["nsplit"] == 5 and plan["grid"] == (1, hkv, 5)
+
+
+def test_split_plans_at_glm4_shapes():
+    """The plans at glm4-9b's layouts on a 132-SM card: kernel 5's 4-slot
+    decode over 4096 positions cuts the keys into 64 chunks (512 blocks of
+    the decode kernel), its causal 4096-token prefill does not cut them;
+    kernel 6's dK/dV pass cuts each kv head's 16 q heads into 8 parts
+    (1024 blocks) and reads bf16 inputs as they are."""
+    dec = flash_kernel.q8_plan(8, 1, 4096, 16, 132)
+    assert dec == {"decode": True, "nsplit": 64, "chunk": 64,
+                   "grid": (1, 8, 64)}
+    pre = flash_kernel.q8_plan(2, 4096, 4096, 16, 132)
+    assert not pre["decode"] and pre["grid"] == (1024, 2, 1)
+    bwd = flash_kernel.bwd_plan(32, 2, 4096, 128, True, True, 132)
+    assert bwd == {"np": 1, "planes": False, "ld": 128, "nsplit": 8}
+    f32 = flash_kernel.bwd_plan(32, 2, 4096, 100, False, True, 132)
+    assert (f32["np"], f32["planes"], f32["ld"]) == (2, True, 104)
+    assert flash_kernel.bwd_plan(4, 4, 64, 16, True, True, 132)["nsplit"] == 1

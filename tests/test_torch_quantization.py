@@ -10,6 +10,7 @@ it is held to 1e-6 in float32.  Gradients are straight-through: the float
 matmul's, within an ``atol`` of 1e-5 (float32 sums in another order).
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -89,6 +90,28 @@ def test_quantize_act_matches_reference(dtype, pow2, rng):
                                     tq.quantize_act(tx, tp))
             _same(tq_, jq_)
             _same(ts, js)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_quantize_act_wide_scale_matches_compiled_reference(dtype, rng):
+    """``wide_scale=True``: the words and the float32 scale of the
+    reference's ``quantize_act`` compiled by ``jax.jit``, which rescales by
+    ``exp2``'s float32 value where op by op it rounds it to bfloat16
+    first (in float32 the two agree)."""
+    jp, tp = jq.QuantPolicy(), tq.QuantPolicy()
+    compiled = jax.jit(functools.partial(jq.quantize_act, policy=jp))
+    wider = 0
+    for k in range(-12, 6):
+        for j in range(4):
+            x = (rng.normal(size=(4, 32)) * 2.0 ** k * (1 + j / 4)).astype(
+                np.float32)
+            jx, tx = _pair(x, dtype)
+            (jq_, js), (tq_, ts) = (compiled(jx),
+                                    tq.quantize_act(tx, tp, wide_scale=True))
+            _same(tq_, jq_)
+            _same(ts, js)
+            wider += ts.item() != tq.quantize_act(tx, tp)[1].item()
+    assert wider == 0 if dtype == "float32" else wider > 0
 
 
 def test_int8_matmul_matches_reference(rng):
